@@ -1,0 +1,32 @@
+"""lzs_tpu_torch: the LZS container codec on PyTorch, with CUDA kernels.
+
+The port of ``lzs_tpu`` (JAX on a TPU) to PyTorch and CUDA on an NVIDIA
+Hopper GPU. It imports torch and numpy, never jax. The JAX package is
+its reference: every stage here matches its counterpart exactly.
+
+Layout (mirrors ``lzs_tpu``):
+  spec.py        wire-format constants
+  ops/           the container codec path:
+                   sortmatch.py  sort-based match search + run extension
+                   tokenize.py   greedy token walk + emission units
+                   bitpack.py    bit pack (ppack.py: kernel + plain form)
+                   encode.py     encode pipeline + sync records (psync.py)
+                   decode2.py    sync-parallel container decoder
+                   pext.py       row scans (kernel + plain form)
+                   pexpand.py    copy expansion (kernel + plain form)
+                   _kernels.py   nvcc build, ctypes loader, launch counts
+  csrc/          the hand-written CUDA kernels (sm_90a)
+  blocks.py      BlockCodec and the container framing
+  convert.py     codec settings and batch arrays across the two packages
+  trace.py       named stage spans (profiler annotations, stage times)
+
+A kernel runs for a tensor on a CUDA device; a tensor on the CPU runs
+the kernel's plain torch version. Nothing falls back.
+"""
+
+from .spec import DEFAULT_CONFIG, LzsConfig, compressed_max
+from .blocks import BlockCodec
+
+__version__ = "0.1.0"
+
+__all__ = ["BlockCodec", "DEFAULT_CONFIG", "LzsConfig", "compressed_max"]

@@ -1,0 +1,60 @@
+"""Carry codec state between the JAX package and the port.
+
+The codec has no weights: its state is its settings and the batch
+arrays that pass between the encoder and the decoder. These helpers move
+both without importing jax: a JAX ``BlockCodec`` is read through its
+plain attributes, and batch arrays cross as numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .blocks import BlockCodec
+
+#: batch arrays of the container path and their dtypes
+BATCH_DTYPES = {
+    "comp": np.uint8,       # (B, cap) packed streams
+    "clen": np.int32,       # (B,) compressed bytes per block
+    "sync_bit": np.int32,   # (B, I) sync record bit offsets
+    "sync_out": np.int32,   # (B, I) packed sync records
+    "nsync": np.int32,      # (B,) live sync records per block
+    "n": np.int32,          # (B,) decoded bytes per block
+}
+
+
+def codec_from_jax(jax_codec,
+                   device: torch.device | str = "cpu") -> BlockCodec:
+    """The port's BlockCodec with a JAX codec's settings on ``device``.
+
+    The JAX codec's ``chunk`` sizes only its brute-force search backend;
+    its BlockCodec always uses the sort-based search, whose bytes do not
+    depend on it, so ``chunk`` is checked and not carried.
+    """
+    if int(jax_codec.chunk) <= 0:
+        raise ValueError(f"invalid chunk {jax_codec.chunk!r}")
+    return BlockCodec(block=int(jax_codec.block), span=int(jax_codec.span),
+                      policy=str(jax_codec.policy), device=device)
+
+
+def batch_to_torch(arrays: dict[str, np.ndarray],
+                   device: torch.device | str) -> dict[str, torch.Tensor]:
+    """numpy (or array-like) batch arrays -> contiguous tensors on device."""
+    out = {}
+    for key, a in arrays.items():
+        if key not in BATCH_DTYPES:
+            raise KeyError(f"unknown batch array {key!r}")
+        a = np.array(a, dtype=BATCH_DTYPES[key])    # a writable C copy
+        out[key] = torch.from_numpy(a).to(device)
+    return out
+
+
+def batch_to_numpy(tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Tensors on any device -> numpy batch arrays of the container dtypes."""
+    out = {}
+    for key, t in tensors.items():
+        if key not in BATCH_DTYPES:
+            raise KeyError(f"unknown batch array {key!r}")
+        out[key] = t.detach().cpu().numpy().astype(BATCH_DTYPES[key])
+    return out

@@ -1,0 +1,199 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Every ``lzs_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
+into ONE shared library with a plain C interface, at first use, under
+``build/lzs_tpu_torch/`` in the checkout (the file name carries a hash of
+the sources and flags, so an edited source rebuilds). The library is
+loaded with ``ctypes``; every pointer and the stream pass as
+``c_void_p``.
+
+Each C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing, and returns ``cudaGetLastError()``; the
+:class:`Kernel` wrapper raises :class:`KernelError` when that is not 0
+and counts one launch otherwise. Nothing falls back: a failed build or
+launch raises.
+
+The module imports no CUDA toolchain: the CPU tests import it and never
+build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "lzs_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C entry points: symbol -> argument types (the device index and the
+# stream are the last two arguments of every one).
+_SIGNATURES = {
+    "lzs_cummax_rows": [_P, _P, _I, _I],
+    "lzs_rcummin_rows": [_P, _P, _I, _I],
+    "lzs_pack_rows": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I],
+    "lzs_sync_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P],
+    "lzs_expand_rows": [_P, _P, _I, _I, _P, _I, _P],
+}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise KernelError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return str(path)
+
+
+def sources() -> list[pathlib.Path]:
+    """The kernel sources that build into the library."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+class _Library:
+    """The compiled kernel library, built and loaded once per process."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+        self.path: pathlib.Path | None = None
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._load()
+            return self._lib
+
+    def _load(self) -> ctypes.CDLL:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"liblzs_tpu_torch_{_source_hash()}.so"
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   *map(str, sources())]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise KernelError(
+                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [*args, _I, _P]
+            fn.restype = ctypes.c_int
+        lib.lzs_error_string.argtypes = [ctypes.c_int]
+        lib.lzs_error_string.restype = ctypes.c_char_p
+        self.path = so
+        return lib
+
+
+LIBRARY = _Library()
+
+
+class Kernel:
+    """One C entry point of the kernel library and its launch count.
+
+    ``launches`` grows by one for every launch that the library accepted,
+    and nowhere else; a run shows that it went through the kernel by
+    reading it.
+    """
+
+    def __init__(self, name: str, symbol: str, source: str,
+                 replaces: str) -> None:
+        self.name = name
+        self.symbol = symbol
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        lib = LIBRARY.get()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, self.symbol)(*args, device.index, stream)
+        if err != 0:
+            msg = lib.lzs_error_string(err).decode()
+            raise KernelError(f"{self.symbol} launch failed: {msg} ({err})")
+        self.launches += 1
+
+
+CUMMAX = Kernel("rowscan_cummax", "lzs_cummax_rows",
+                "lzs_tpu_torch/csrc/rowscan.cu",
+                "lzs_tpu/ops/pext.py:185")
+RCUMMIN = Kernel("rowscan_rcummin", "lzs_rcummin_rows",
+                 "lzs_tpu_torch/csrc/rowscan.cu",
+                 "lzs_tpu/ops/pext.py:175")
+PACK = Kernel("pack", "lzs_pack_rows", "lzs_tpu_torch/csrc/pack.cu",
+              "lzs_tpu/ops/ppack.py:34")
+SYNC = Kernel("sync", "lzs_sync_rows", "lzs_tpu_torch/csrc/sync.cu",
+              "lzs_tpu/ops/psync.py:57")
+EXPAND = Kernel("expand", "lzs_expand_rows", "lzs_tpu_torch/csrc/expand.cu",
+                "lzs_tpu/ops/pexpand.py:80")
+KERNELS = (CUMMAX, RCUMMIN, PACK, SYNC, EXPAND)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (use the plain version);
+    False when every one lies on one CUDA device (launch the kernel).
+    Anything else raises: a kernel never falls back."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple[int, ...] | None = None) -> None:
+    """Validate a kernel operand: CUDA, dtype, contiguity, shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

@@ -1,0 +1,129 @@
+"""Greedy token-chain resolution and per-position emission units.
+
+Port of ``lzs_tpu.ops.tokenize`` in its off-TPU form: the token walk is
+``_token_starts_xla`` (in-tile pointer doubling, a tile-serial entry
+thread, descent marking), batched over blocks, with ``torch.gather`` in
+place of the one-hot ``_tile_gather``; the two ownership scans of
+``emission_units_batch`` run on the port's row-scan kernels (pext).
+
+Every token start carries its head unit (flag + literal, or flag +
+offset + initial length code, <= 18 bits); extension nibbles of a long
+match are carried by the positions inside the match (position
+start+1+t carries nibble t), so every position emits at most one
+bounded-width unit. Positions stay int32 throughout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import spec
+from . import pext
+
+_TILE = 128
+_BIG = 0x3FFFFFFF
+
+
+def token_starts(step: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """bool[B, N]: True at greedy token starts.
+
+    step: int32[B, N] bytes consumed by a token starting at each position
+    (>= 1 wherever i < n); n: int32[B].
+    """
+    b, npos = step.shape
+    dev = step.device
+    pad = (-npos) % _TILE
+    if pad:
+        step = torch.cat([step, torch.ones((b, pad), dtype=step.dtype,
+                                           device=dev)], dim=1)
+    m = step.shape[1]
+    ntiles = m // _TILE
+    rounds = _TILE.bit_length() - 1
+    i = torch.arange(m, dtype=torch.int32, device=dev)
+    base = (torch.arange(ntiles, dtype=torch.int32, device=dev)
+            * _TILE)[:, None]                          # (T, 1)
+
+    # 1. in-tile jump tables by pointer doubling (frozen once past tile)
+    a = (i + step.clamp(min=1)).reshape(b, ntiles, _TILE)
+    tables = [a]
+    for _ in range(rounds):
+        g = torch.gather(a, 2, (a - base).clamp(0, _TILE - 1).long())
+        a = torch.where(a < base + _TILE, g, a)
+        tables.append(a)
+    exits = a                     # first chain position >= tile end
+
+    # 2. entry of each tile: thread the chain exit tile by tile
+    c = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    entries = []
+    for t in range(ntiles):
+        entries.append(c)
+        b0 = t * _TILE
+        nxt = torch.gather(exits[:, t], 1, (c - b0).clamp(0, _TILE - 1).long())
+        c = torch.where((c >= b0) & (c < b0 + _TILE), nxt, c)
+    pos = torch.cat(entries, dim=1)[:, :, None].expand(b, ntiles, _TILE)
+
+    # 3. descent: last chain position <= i, from the tile entry down
+    it = i.reshape(ntiles, _TILE)
+    for t in range(rounds - 1, -1, -1):
+        nxt = torch.gather(tables[t], 2,
+                           (pos - base).clamp(0, _TILE - 1).long())
+        ok = (pos >= base) & (pos < base + _TILE) & (nxt <= it)
+        pos = torch.where(ok, nxt, pos)
+    starts = (pos == it).reshape(b, m)[:, :npos]
+    return starts & (i[:npos] < n[:, None])
+
+
+def emission_units_batch(x: torch.Tensor, n: torch.Tensor,
+                         score: torch.Tensor, off: torch.Tensor,
+                         full: torch.Tensor):
+    """Per-position emission units over (B, N) arrays.
+
+    Returns (value, width, starts, length): int32 value/width (width 0
+    emits nothing), bool token-start flags, int32 token length at starts
+    (1 for literals).
+    """
+    b, npos = x.shape
+    i = torch.arange(npos, dtype=torch.int32, device=x.device).expand(b, npos)
+    nq = n[:, None]
+    is_match = (score >= spec.MIN_MATCH) & (i < nq)
+    length = torch.where(is_match, full, 1)
+    starts = token_starts(torch.where(i < nq, length, 1), n)
+
+    # head units: length code by arithmetic (lzs-compression.c:91-124)
+    initial = length.clamp(max=spec.MAX_SHORT_LENGTH).clamp(2, 8)
+    short_code = initial < 5
+    lv = torch.where(short_code, initial - 2, initial + 7)
+    lw = torch.where(short_code, 2, 4)
+    short = off <= spec.SHORT_OFFSET_MAX
+    off_field = torch.where(short, (1 << spec.SHORT_OFFSET_BITS) | off, off)
+    off_width = torch.where(short, 1 + spec.SHORT_OFFSET_BITS,
+                            1 + spec.LONG_OFFSET_BITS).to(torch.int32)
+    match_v = (((1 << off_width) | off_field) << lw) | lv
+    match_w = 1 + off_width + lw
+    head_v = torch.where(is_match, match_v, x.to(torch.int32))
+    head_w = torch.where(is_match, match_w, 9)
+
+    # gather-free ownership: owner start and next start by row scans
+    key = torch.where(starts, (i << 1) | is_match.to(torch.int32), -1)
+    ck = pext.cummax_rows(key)
+    owner = ck >> 1
+    own_match = (ck & 1) == 1
+    nstart = torch.where(starts, i, _BIG)
+    rc = pext.rcummin_rows(nstart)                   # next start >= j
+    own_len = torch.minimum(rc, nq) - owner          # token length at j
+
+    # extension nibbles attributed to in-match positions
+    t = i - owner - 1
+    rest = own_len - spec.MAX_SHORT_LENGTH
+    q = torch.div(rest.clamp(min=0), spec.MAX_EXTENDED_LENGTH,
+                  rounding_mode="floor")
+    is_nib = ((~starts) & (owner >= 0) & own_match
+              & (own_len >= spec.MAX_SHORT_LENGTH)
+              & (t < q + 1) & (i < nq))
+    nib_v = torch.where(t < q, spec.MAX_EXTENDED_LENGTH,
+                        rest - q * spec.MAX_EXTENDED_LENGTH)
+
+    value = torch.where(starts, head_v, torch.where(is_nib, nib_v, 0))
+    width = torch.where(starts, head_w, torch.where(is_nib, 4, 0))
+    return (value.to(torch.int32), width.to(torch.int32), starts,
+            length.to(torch.int32))

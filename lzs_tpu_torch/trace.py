@@ -1,0 +1,58 @@
+"""Named stage spans of the codec's main path.
+
+Every stage of compress and decompress runs inside ``stage(name)``: a
+``torch.profiler.record_function`` span named ``lzs::<name>``, which a
+profiler trace shows on the host and, as a user annotation, over the
+device work the stage launched. With no profiler running a span costs a
+few microseconds.
+
+``stage_times()`` is the breakdown of the real pipeline: while it is
+entered, each stage also synchronises the current CUDA device before and
+after itself and adds its host-clock seconds to the dict it yields. The
+synchronisation serialises the stages, so use it for a breakdown and
+time throughput without it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+_times: dict[str, float] | None = None
+
+#: stage names in pipeline order (compress, then decompress)
+STAGES = ("candidates", "extend", "units", "pack", "sync",
+          "parse", "fill", "expand")
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """Run the enclosed stage as the span ``lzs::<name>``."""
+    with torch.profiler.record_function(f"lzs::{name}"):
+        times = _times
+        if times is None:
+            yield
+            return
+        _sync()
+        t0 = time.perf_counter()
+        yield
+        _sync()
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def stage_times():
+    """Yield a dict that collects each stage's synchronised seconds."""
+    global _times
+    prev, _times = _times, {}
+    try:
+        yield _times
+    finally:
+        _times = prev
