@@ -5,33 +5,50 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints one line or more; any failure raises and exits
+non-zero):
 
   1. device   require CUDA; print the card's name and power limit as
               nvidia-smi gives them;
-  2. build    build and load the four CUDA kernels from csrc/ (nvcc);
-  3. kernels  each kernel against its plain torch version on the card, at
-              the bench shape (256 blocks x 32768 bytes; record rows of
-              38656 slots), on inputs made by the port's own pipeline from
-              the frozen 8 MiB corpus; bitwise equality, CUDA-event times;
+  2. build    build the CUDA sources from csrc/ (one nvcc each, all at
+              once) into one library and load it;
+  3. kernels  every kernel wrapper call of one greedy compress +
+              decompress of the frozen 8 MiB corpus (256 blocks x 32768
+              bytes), of one decode_batch_raw of its raw payload and of
+              the 2^18 decode_block is recorded as it runs; each recorded
+              call is then held against the kernel's plain torch version
+              on the same inputs, bitwise, and the first call of each
+              shape is timed with CUDA events (so every kernel is checked
+              at exactly the shapes its paths give it);
   4. main     BlockCodec(block=32768, device="cuda") compress + decompress
               of the corpus with every launch counter reset just before;
               the round trip must be exact, the raw payload must equal the
               C encoder's bytes block by block (native/lzs_native.cpp)
               and the C decoder must read it back, the lazy policy must
               round-trip, and one more pass prints each stage's time;
-  5. counts   every kernel of the path launched at least once in phase 4;
-  6. corrupt  a flipped payload byte raises ValueError.
+  5. raw      BlockCodec.decode_batch_raw of the port's raw per-block
+              payload of the corpus (256 x cap bytes plus lengths), with
+              the counters reset just before: every block must equal its
+              input; then its GB/s and RAW_STAGES times, a batch of four
+              short blocks that must decode exactly and read one end
+              marker each, and one decode_block at out_cap = 2^18 of a
+              C-encoded slice of the corpus just under 256 KiB, which
+              must be exact and read its end marker;
+  6. counts   every kernel of each path launched at least once in that
+              path's phase (4 and 5);
+  7. corrupt  a flipped payload byte raises ValueError.
 
 Then one JSON line with every kernel's name, route, source, the TPU
-kernel it replaces, its launches in phase 4, its error and both times,
-and last the line {"ok": true, "device": {...}}.
+kernel it replaces, its launches in phases 4 and 5, its error, both
+times at its widest input on a counted path ("shape") and both times at
+every shape (``at``), and last the line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port; nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -49,13 +66,20 @@ sys.path.insert(0, str(ROOT))
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks  # noqa: E402
 from lzs_tpu_torch.ops import (  # noqa: E402
-    _kernels, decode2, encode, pexpand, pext, ppack, psync, sortmatch,
-    tokenize)
+    _kernels, bitpar, decode, pexpand, pext, ppack, psync, pwalk)
 from lzs_tpu_torch import spec, trace  # noqa: E402
 
 BLOCK = 1 << 15
 SIZE = 1 << 23
 REPS = 10
+
+#: kernels each path must launch (the counters are reset before each)
+PATH_KERNELS = {
+    "main": ("rowscan_cummax", "rowscan_rcummin", "pack", "sync", "expand",
+             "walk_tables", "walk_entries", "walk_descent"),
+    "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
+            "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
+}
 
 
 def log(phase: str, msg: str) -> None:
@@ -132,8 +156,46 @@ def phase_build() -> None:
         f"{_kernels.LIBRARY.path.name} in {time.perf_counter() - t0:.1f} s")
 
 
-def _compare(name: str, kernel_fn, plain_fn) -> dict:
-    """Kernel vs plain on the same inputs: bitwise equal, both timed."""
+#: each kernel's wrapper (module, attribute) and its plain version
+WRAPPERS = {
+    "rowscan_cummax": (pext, "cummax_rows", pext.cummax_rows_plain),
+    "rowscan_rcummin": (pext, "rcummin_rows", pext.rcummin_rows_plain),
+    "rowscan_cumsum": (pext, "cumsum_rows_wide",
+                       lambda v, tile=0: pext.cumsum_rows_plain(v)),
+    "walk_tables": (pwalk, "walk_tables", pwalk.walk_tables_plain),
+    "walk_entries": (pwalk, "walk_entries", pwalk.walk_entries_plain),
+    "walk_descent": (pwalk, "walk_descent", pwalk.walk_descent_plain),
+    "pack": (ppack, "pack_rows", ppack.pack_rows_plain),
+    "sync": (psync, "sync_records", psync.sync_records_plain),
+    "expand": (pexpand, "expand_records", pexpand.expand_records_plain),
+}
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Record the arguments of every kernel wrapper call made inside,
+    by kernel name (the wrappers run as usual)."""
+    calls = {name: [] for name in WRAPPERS}
+    saved = []
+    for name, (module, attr, _) in WRAPPERS.items():
+        wrapper = getattr(module, attr)
+
+        def record(*args, _name=name, _wrapper=wrapper, **kw):
+            calls[_name].append((args, kw))
+            return _wrapper(*args, **kw)
+
+        saved.append((module, attr, wrapper))
+        setattr(module, attr, record)
+    try:
+        yield calls
+    finally:
+        for module, attr, wrapper in saved:
+            setattr(module, attr, wrapper)
+
+
+def _compare(name: str, kernel_fn, plain_fn, timed: bool) -> dict:
+    """Kernel vs plain on the same inputs: bitwise equal; both timed if
+    asked."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -144,78 +206,84 @@ def _compare(name: str, kernel_fn, plain_fn) -> dict:
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{name}: kernel {g.dtype}{tuple(g.shape)} "
                                  f"vs plain {w.dtype}{tuple(w.shape)}")
-        err = max(err, int((g.long() - w.long()).abs().max()))
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain, "
                              f"max abs err {err}")
-    ms = cuda_ms(kernel_fn)
-    plain_ms = cuda_ms(plain_fn)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    if not timed:
+        return {"max_abs_err": err}
+    return {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
+            "plain_ms": cuda_ms(plain_fn)}
 
 
-def phase_kernels(data: bytes, device: torch.device) -> dict[str, dict]:
-    """Each kernel vs its plain version at the bench shape, on inputs the
-    port's pipeline makes from the corpus (random rows for the scans)."""
-    rng = np.random.default_rng(7)
-    x_np, lens = pad_blocks(data, BLOCK)
-    x = torch.from_numpy(x_np).to(device).to(torch.int32)
-    n = torch.from_numpy(lens).to(device)
-    b = x.shape[0]
+def _shape_key(args: tuple, kw: dict) -> str:
+    """The shapes of a call's tensors and its other arguments."""
+    def one(a):
+        return "x".join(map(str, a.shape)) if torch.is_tensor(a) else repr(a)
+    return ", ".join([one(a) for a in args]
+                     + [f"{k}={one(v)}" for k, v in sorted(kw.items())])
+
+
+def _numel(args: tuple) -> int:
+    return next(a.numel() for a in args if torch.is_tensor(a))
+
+
+def phase_kernels(data: bytes, device: torch.device, native) -> dict:
+    """Each kernel's wrapper vs its plain version, bitwise, on every input
+    that the paths give it, recorded as they run: one greedy compress +
+    decompress of the corpus (path main), one decode_batch_raw of its raw
+    per-block payload (path raw) and the 2^18 decode_block (path raw,
+    wide row). The first call of each shape is timed with CUDA events."""
+    native_compress, _ = native
+    codec = BlockCodec(block=BLOCK, device=device)
+    calls = {}
+    with recorded_calls() as calls["main"]:
+        codec.decompress(codec.compress(data))
+    comp, clen, _, _ = raw_payload(codec, data, device)
+    with recorded_calls() as calls["raw"]:
+        codec.decode_batch_raw(comp, clen)
+    del comp, clen
+    with recorded_calls() as calls["raw 2^18"]:
+        decode.decode_bytes(native_compress(wide_piece(data)),
+                            bitpar.MAX_OUT_CAP, device=device)
+    torch.cuda.synchronize()
+    for path, names in PATH_KERNELS.items():
+        called = sorted(k for k, c in calls[path].items() if c)
+        if called != sorted(names):
+            raise AssertionError(f"{path}: kernels called {called}, listed "
+                                 f"{sorted(names)}")
+
     results = {}
-
-    def scan_rows(width: int) -> torch.Tensor:
-        v = rng.integers(-(1 << 20), 1 << 20, (b, width), dtype=np.int64)
-        pick = rng.random((b, width))
-        v[pick < 0.2] = -1
-        v[pick > 0.8] = 0x3FFFFFFF
-        return torch.from_numpy(v.astype(np.int32)).to(device)
-
-    span = encode.SYNC_SPAN
-    nslots = encode.sync_slots(BLOCK, span)
-    s_fill = -(-(nslots * (span // 32 + 2) * 4) // 128) * 128
-    enc_rows = scan_rows(BLOCK)
-    fill_rows = scan_rows(s_fill)
-    results["rowscan_cummax"] = _compare(
-        "cummax", lambda: pext.cummax_rows(fill_rows),
-        lambda: pext.cummax_rows_plain(fill_rows))
-    results["rowscan_rcummin"] = _compare(
-        "rcummin", lambda: pext.rcummin_rows(enc_rows),
-        lambda: pext.rcummin_rows_plain(enc_rows))
-    log("kernels", f"scans equal on ({b}, {s_fill}) and ({b}, {BLOCK})")
-
-    score, off, full = sortmatch.best_matches_batch(x, n)
-    value, width, starts, _ = tokenize.emission_units_batch(
-        x, n, score, off, full)
-    cap = encode.cap_bytes(BLOCK)
-    em = (spec.END_MARKER_VALUE, spec.END_MARKER_BITS)
-    results["pack"] = _compare(
-        "pack", lambda: ppack.pack_rows(value, width, cap, em),
-        lambda: ppack.pack_rows_plain(value, width, cap, em))
-    comp, total_bits, offs = ppack.pack_rows(value, width, cap, em)
-
-    end_bits = total_bits - spec.END_MARKER_BITS
-    kw = dict(span=span, nibbles=encode.NIBBLES_PER_STEP,
-              short_len=spec.MAX_SHORT_LENGTH,
-              ext_len=spec.MAX_EXTENDED_LENGTH, nslots=nslots)
-    st32 = starts.to(torch.int32)
-    results["sync"] = _compare(
-        "sync",
-        lambda: psync.sync_records(st32, width, off, offs, end_bits, n, **kw),
-        lambda: psync.sync_records_plain(st32, width, off, offs, end_bits,
-                                         n, **kw))
-    sync_bit, sync_out, _ = psync.sync_records(st32, width, off, offs,
-                                               end_bits, n, **kw)
-
-    recs, _ = decode2._parse_full(comp, sync_bit, sync_out, span)
-    fill = decode2._filled_records(recs)
-    if fill.shape[1] != s_fill:
-        raise AssertionError(f"record rows {fill.shape[1]} != {s_fill}")
-    results["expand"] = _compare(
-        "expand", lambda: pexpand.expand_records(fill, n, BLOCK),
-        lambda: pexpand.expand_records_plain(fill, n, BLOCK))
-    for name, r in results.items():
-        log("kernels", f"{name}: equal to plain (tolerance 0, bitwise), "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    for path, by_kernel in calls.items():
+        for name, recorded in by_kernel.items():
+            module, attr, plain = WRAPPERS[name]
+            wrapper = getattr(module, attr)
+            shapes = {}
+            for args, kw in recorded:
+                key = _shape_key(args, kw)
+                r = _compare(name, lambda: wrapper(*args, **kw),
+                             lambda: plain(*args, **kw), key not in shapes)
+                entry = shapes.setdefault(key, {
+                    "path": path, "shape": key, "calls": 0,
+                    "numel": _numel(args), **r})
+                entry["calls"] += 1
+            recorded.clear()
+            res = results.setdefault(name, {"max_abs_err": 0, "at": []})
+            for e in shapes.values():
+                res["at"].append(e)
+                log("kernels", f"{path} {name} ({e['shape']}) x{e['calls']}: "
+                    f"equal to plain (tolerance 0, bitwise), kernel "
+                    f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms")
+            torch.cuda.empty_cache()
+    # the headline time of a kernel: its widest input on a counted path
+    for res in results.values():
+        top = max((e for e in res["at"] if e["path"] in PATH_KERNELS),
+                  key=lambda e: e["numel"])
+        res.update(shape=top["shape"], ms=top["ms"],
+                   plain_ms=top["plain_ms"])
+        for e in res["at"]:
+            del e["numel"]
     return results
 
 
@@ -236,7 +304,8 @@ def _stage_breakdown(codec: BlockCodec, data: bytes) -> str:
     return "stages ms: " + ", ".join(parts)
 
 
-def phase_main(data: bytes, device: torch.device):
+def phase_main(data: bytes, device: torch.device, native):
+    native_compress, native_decompress = native
     codec = BlockCodec(block=BLOCK, device=device)
     _kernels.reset_launches()
     blob = codec.compress(data)
@@ -262,7 +331,6 @@ def phase_main(data: bytes, device: torch.device):
         f"{len(data) / (t2 - t1) / 1e9:.4f} GB/s ({1e3 * (t2 - t1):.1f} ms)")
     log("main", _stage_breakdown(codec, data))
 
-    native_compress, native_decompress = native_codec()
     raw = codec.compress(data, container=False)
     pieces = [data[s:s + BLOCK] for s in range(0, len(data), BLOCK)]
     expect = b"".join(native_compress(p) for p in pieces)
@@ -282,12 +350,106 @@ def phase_main(data: bytes, device: torch.device):
     return counts, blob, codec
 
 
-def phase_counts(counts: dict[str, int]) -> None:
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    log("counts", ", ".join(f"{k}={v}" for k, v in counts.items()))
+def raw_payload(codec: BlockCodec, data: bytes, device: torch.device):
+    """The port's raw per-block payload of ``data``: (comp uint8[B, cap],
+    clen int32[B]) on the card, and the blocks (uint8[B, block], n)."""
+    x_np, lens = pad_blocks(data, codec.block)
+    x = torch.from_numpy(x_np).to(device)
+    n = torch.from_numpy(lens).to(device)
+    comp, clen, _, _, _ = codec.encode_batch(x, n)
+    return comp, clen, x, n
+
+
+def wide_piece(data: bytes) -> bytes:
+    """A slice of the corpus just under the raw decoder's 2^18 bound."""
+    return data[:bitpar.MAX_OUT_CAP - 1024]
+
+
+def phase_raw(data: bytes, device: torch.device, native) -> dict[str, int]:
+    """The raw-stream decoder on the port's own per-block payload."""
+    native_compress, _ = native
+    codec = BlockCodec(block=BLOCK, device=device)
+    comp, clen, x, n = raw_payload(codec, data, device)
+    lens = n.tolist()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out, out_len, markers = codec.decode_batch_raw(comp, clen)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    if out_len.tolist() != lens:
+        raise AssertionError("raw decode: output lengths differ")
+    if not torch.equal(torch.where(torch.arange(BLOCK, device=device)
+                                   < n[:, None], out, 0), x):
+        raise AssertionError("raw decode: bytes differ from the input")
+    # a full block's end marker lies at out_cap = block, past the output,
+    # and is not read (as in the JAX package's scan oracle)
+    want_markers = [int(m < BLOCK) for m in lens]
+    if markers.tolist() != want_markers:
+        raise AssertionError(f"raw decode: markers {markers.tolist()}")
+    log("raw", f"decode_batch_raw of {comp.shape[0]} x {comp.shape[1]} "
+        f"bytes ({int(clen.sum())} payload): every block equals its input; "
+        f"{sum(want_markers)} end marker(s) read, one per block shorter "
+        f"than {BLOCK} (a full block's marker lies past out_cap)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codec.decode_batch_raw(comp, clen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log("raw", f"raw decode {len(data) / dt / 1e9:.4f} GB/s "
+        f"({1e3 * dt:.1f} ms, host clock, synchronised)")
+    with trace.stage_times() as times:
+        codec.decode_batch_raw(comp, clen)
+    if set(times) != set(trace.RAW_STAGES):
+        raise AssertionError(f"raw stages timed: {sorted(times)}")
+    log("raw", "raw stages ms: " + ", ".join(
+        f"{s} {1e3 * times[s]:.1f}" for s in trace.RAW_STAGES))
+    del comp, out, x
+
+    # short blocks: each reads its end marker on the card
+    q = len(data) // 4
+    short = [data[s:s + m] for s, m in
+             ((0, 1), (q, 1000), (2 * q, 20000), (3 * q, BLOCK - 1))]
+    encoded = [raw_payload(codec, p, device)[:2] for p in short]
+    comp = torch.cat([c for c, _ in encoded])
+    clen = torch.cat([m for _, m in encoded])
+    out, out_len, markers = codec.decode_batch_raw(comp, clen)
+    got = [bytes(out[i, :int(out_len[i])].cpu().numpy())
+           for i in range(len(short))]
+    if got != short or markers.tolist() != [1] * len(short):
+        raise AssertionError(f"raw decode of short blocks: lengths "
+                             f"{out_len.tolist()}, markers "
+                             f"{markers.tolist()}")
+    log("raw", f"decode_batch_raw of {len(short)} short blocks "
+        f"({[len(p) for p in short]} bytes): exact, one end marker each")
+
+    piece = wide_piece(data)
+    stream = native_compress(piece)
+    out, out_len, markers = decode.decode_block(
+        torch.from_numpy(np.frombuffer(stream, np.uint8).copy()).to(device),
+        torch.tensor(len(stream), dtype=torch.int32, device=device),
+        out_cap=bitpar.MAX_OUT_CAP)
+    if (out[:int(out_len)].cpu().numpy().tobytes() != piece
+            or int(markers) != 1):
+        raise AssertionError("decode_block at out_cap 2^18 differs")
+    log("raw", f"decode_block of a {len(stream)}-byte C-encoded stream at "
+        f"out_cap {bitpar.MAX_OUT_CAP}: {len(piece)} bytes exact, its end "
+        f"marker read")
+    return counts
+
+
+def phase_counts(counts: dict[str, dict[str, int]]) -> None:
+    for path, names in PATH_KERNELS.items():
+        missing = [k for k in names if counts[path][k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} "
+                                 f"path: {missing}")
+        log("counts", f"{path}: " + ", ".join(
+            f"{k}={v}" for k, v in counts[path].items()))
+    idle = [k.name for k in _kernels.KERNELS
+            if not any(k.name in names for names in PATH_KERNELS.values())]
+    if idle:
+        raise AssertionError(f"kernels on no path: {idle}")
 
 
 def phase_corrupt(blob: bytes, codec: BlockCodec) -> None:
@@ -312,12 +474,19 @@ def main() -> None:
     log("corpus", f"{len(data)} bytes, sha256 ok, "
         f"{time.perf_counter() - t0:.1f} s")
     phase_build()
-    timing = phase_kernels(data, device)
-    counts, blob, codec = phase_main(data, device)
+    native = native_codec()
+    timing = phase_kernels(data, device, native)
+    torch.cuda.empty_cache()
+    counts = {}
+    counts["main"], blob, codec = phase_main(data, device, native)
+    counts["raw"] = phase_raw(data, device, native)
     phase_counts(counts)
     phase_corrupt(blob, codec)
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
-                "replaces": k.replaces, "launches": counts[k.name],
+                "replaces": k.replaces,
+                "launches": counts["main"][k.name] + counts["raw"][k.name],
+                "launches_main": counts["main"][k.name],
+                "launches_raw": counts["raw"][k.name],
                 **timing[k.name]} for k in _kernels.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""lzs_tpu_torch: the LZS container codec on PyTorch, with CUDA kernels.
+"""lzs_tpu_torch: the LZS codec on PyTorch, with CUDA kernels.
 
 The port of ``lzs_tpu`` (JAX on a TPU) to PyTorch and CUDA on an NVIDIA
 Hopper GPU. It imports torch and numpy, never jax. The JAX package is
@@ -6,13 +6,16 @@ its reference: every stage here matches its counterpart exactly.
 
 Layout (mirrors ``lzs_tpu``):
   spec.py        wire-format constants
-  ops/           the container codec path:
+  ops/           the container codec path and the raw-stream decoder:
                    sortmatch.py  sort-based match search + run extension
                    tokenize.py   greedy token walk + emission units
+                   pwalk.py      token walk (kernels + plain form)
                    bitpack.py    bit pack (ppack.py: kernel + plain form)
                    encode.py     encode pipeline + sync records (psync.py)
                    decode2.py    sync-parallel container decoder
-                   pext.py       row scans (kernel + plain form)
+                   bitpar.py     per-bit parallel raw-stream decoder
+                   decode.py     raw decode entry points (engine "bits")
+                   pext.py       row scans (kernels + plain form)
                    pexpand.py    copy expansion (kernel + plain form)
                    _kernels.py   nvcc build, ctypes loader, launch counts
   csrc/          the hand-written CUDA kernels (sm_90a)

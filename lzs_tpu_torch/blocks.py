@@ -25,6 +25,7 @@ import zlib
 import numpy as np
 import torch
 
+from .ops import decode as dec_ops
 from .ops import decode2 as dec2_ops
 from .ops import encode as enc_ops
 
@@ -90,11 +91,21 @@ class BlockCodec:
         return enc_ops.encode_batch_sync(x, n, span=self.span,
                                          policy=self.policy)
 
+    def decode_batch(self, comp, sync_bit, sync_out, n):
+        """Sync-parallel batch decode -> uint8[B, block]."""
+        return self.decode_batch_status(comp, sync_bit, sync_out, n)[0]
+
     def decode_batch_status(self, comp, sync_bit, sync_out, n):
         """Sync-parallel batch decode with per-block status words
         (decode2.decode_batch_sync lists the bits)."""
         return dec2_ops.decode_batch_sync(comp, sync_bit, sync_out, n,
                                           out_cap=self.block, span=self.span)
+
+    def decode_batch_raw(self, comp: torch.Tensor, nbytes: torch.Tensor):
+        """Metadata-free batch decode of raw streams (reference semantics,
+        the per-bit parallel parse): (uint8[B, C], int32[B]) -> (out
+        uint8[B, block], out_len int32[B], end_markers int32[B])."""
+        return dec_ops.decode_batch(comp, nbytes, out_cap=self.block)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

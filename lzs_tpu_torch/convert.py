@@ -13,7 +13,8 @@ import torch
 
 from .blocks import BlockCodec
 
-#: batch arrays of the container path and their dtypes
+#: batch arrays of the container path and the raw decoder, and their
+#: dtypes
 BATCH_DTYPES = {
     "comp": np.uint8,       # (B, cap) packed streams
     "clen": np.int32,       # (B,) compressed bytes per block
@@ -21,6 +22,8 @@ BATCH_DTYPES = {
     "sync_out": np.int32,   # (B, I) packed sync records
     "nsync": np.int32,      # (B,) live sync records per block
     "n": np.int32,          # (B,) decoded bytes per block
+    "out_len": np.int32,    # (B,) raw decode: bytes decoded per stream
+    "markers": np.int32,    # (B,) raw decode: end markers read per stream
 }
 
 

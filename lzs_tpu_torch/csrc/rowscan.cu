@@ -1,7 +1,12 @@
-// Row scans over int32 (B, N): inclusive prefix max and suffix min.
+// Row scans over int32 (B, N): inclusive prefix max, suffix min and
+// prefix sum.
 //
-// Replaces: lzs_tpu/ops/pext.py _cummax_kernel (K8, cummax_rows) and
-// _rcummin_kernel (K7, rcummin_rows), the Pallas log-step roll scans.
+// Replaces: lzs_tpu/ops/pext.py _cummax_kernel (K8, cummax_rows),
+// _rcummin_kernel (K7, rcummin_rows) and _cumsum_kernel (K9,
+// cumsum_rows_wide), the Pallas log-step roll scans. K9's two-stage
+// tiling (per-tile scans, a cumsum of tile totals, a broadcast add)
+// exists only because a TPU row must fit VMEM; the carry below does the
+// same in one launch for any width.
 //
 // Bound: memory. Each element is read once and written once (8 bytes);
 // the scan itself is a few integer operations per element.
@@ -12,8 +17,9 @@
 // warp over the 32 warp totals, and a carry threads the tiles together.
 // The suffix scan walks the tiles from the row's end with the thread
 // order reversed. Any N works (encode rows are 32768, the decoder's
-// filled-record rows 38656); the ragged last tile pads with the
-// operator's identity.
+// filled-record rows 38656, the raw decoder's slot rows 33792); the
+// ragged last tile pads with the operator's identity. The sum wraps
+// modulo 2^32 like an int32 sum in torch.
 #include "scan.cuh"
 
 namespace {
@@ -58,6 +64,12 @@ LZS_API int lzs_rcummin_rows(const int* in, int* out, int rows, int n,
                              int device, void* stream) {
   return launch<lzs::MinOp, true>(in, out, rows, n, device,
                                   static_cast<cudaStream_t>(stream));
+}
+
+LZS_API int lzs_cumsum_rows(const int* in, int* out, int rows, int n,
+                            int device, void* stream) {
+  return launch<lzs::AddOp, false>(in, out, rows, n, device,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 LZS_API const char* lzs_error_string(int err) {

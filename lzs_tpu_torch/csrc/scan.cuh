@@ -29,10 +29,12 @@ struct MinOp {
   }
 };
 
+// Wraps modulo 2^32, as int32 sums do in torch and in JAX.
 struct AddOp {
   static constexpr int identity = 0;
   __device__ __forceinline__ int operator()(int a, int b) const {
-    return a + b;
+    return static_cast<int>(static_cast<unsigned>(a) +
+                            static_cast<unsigned>(b));
   }
 };
 

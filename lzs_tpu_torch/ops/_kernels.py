@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every ``lzs_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a``
-into ONE shared library with a plain C interface, at first use, under
+(one ``nvcc`` per source, all started together) and links into ONE
+shared library with a plain C interface, at first use, under
 ``build/lzs_tpu_torch/`` in the checkout (the file name carries a hash of
 the sources and flags, so an edited source rebuilds). The library is
 loaded with ``ctypes``; every pointer and the stream pass as
@@ -33,7 +34,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lzs_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "lzs_cummax_rows": [_P, _P, _I, _I],
     "lzs_rcummin_rows": [_P, _P, _I, _I],
+    "lzs_cumsum_rows": [_P, _P, _I, _I],
+    "lzs_walk_tables": [_P, _P, _P, _I, _I],
+    "lzs_walk_entries": [_P, _P, _I, _I],
+    "lzs_walk_descent": [_P, _P, _P, _P, _I, _I, _I],
     "lzs_pack_rows": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _I],
     "lzs_sync_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P],
@@ -97,14 +102,7 @@ class _Library:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"liblzs_tpu_torch_{_source_hash()}.so"
         if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   *map(str, sources())]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise KernelError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-            os.replace(tmp, so)
+            self._build(so)
         lib = ctypes.CDLL(str(so))
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -114,6 +112,45 @@ class _Library:
         lib.lzs_error_string.restype = ctypes.c_char_p
         self.path = so
         return lib
+
+    @staticmethod
+    def _build(so: pathlib.Path) -> None:
+        """Compile every source at once, one nvcc each, then link."""
+        nvcc = _nvcc()
+        work = so.with_suffix(f".{os.getpid()}.d")
+        work.mkdir(exist_ok=True)
+        jobs = []
+        try:
+            for src in sources():
+                obj = work / f"{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                       str(obj), str(src)]
+                jobs.append((src, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            errors = []
+            for src, _, proc in jobs:       # wait for every one of them
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"{src.name} ({proc.returncode}):\n"
+                                  f"{err[-4000:]}")
+            if errors:
+                raise KernelError("nvcc failed: " + "\n".join(errors))
+            tmp = work / so.name
+            res = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *(str(obj) for _, obj, _ in jobs)],
+                capture_output=True, text=True)
+            if res.returncode != 0:
+                raise KernelError(f"nvcc link failed ({res.returncode}):\n"
+                                  f"{res.stderr[-4000:]}")
+            os.replace(tmp, so)
+        finally:
+            for _, _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            shutil.rmtree(work, ignore_errors=True)
 
 
 LIBRARY = _Library()
@@ -151,13 +188,26 @@ CUMMAX = Kernel("rowscan_cummax", "lzs_cummax_rows",
 RCUMMIN = Kernel("rowscan_rcummin", "lzs_rcummin_rows",
                  "lzs_tpu_torch/csrc/rowscan.cu",
                  "lzs_tpu/ops/pext.py:175")
+CUMSUM = Kernel("rowscan_cumsum", "lzs_cumsum_rows",
+                "lzs_tpu_torch/csrc/rowscan.cu",
+                "lzs_tpu/ops/pext.py:194")
+WALK_TABLES = Kernel("walk_tables", "lzs_walk_tables",
+                     "lzs_tpu_torch/csrc/walk.cu",
+                     "lzs_tpu/ops/pwalk.py:71")
+WALK_ENTRIES = Kernel("walk_entries", "lzs_walk_entries",
+                      "lzs_tpu_torch/csrc/walk.cu",
+                      "lzs_tpu/ops/pwalk.py:90")
+WALK_DESCENT = Kernel("walk_descent", "lzs_walk_descent",
+                      "lzs_tpu_torch/csrc/walk.cu",
+                      "lzs_tpu/ops/pwalk.py:110")
 PACK = Kernel("pack", "lzs_pack_rows", "lzs_tpu_torch/csrc/pack.cu",
               "lzs_tpu/ops/ppack.py:34")
 SYNC = Kernel("sync", "lzs_sync_rows", "lzs_tpu_torch/csrc/sync.cu",
               "lzs_tpu/ops/psync.py:57")
 EXPAND = Kernel("expand", "lzs_expand_rows", "lzs_tpu_torch/csrc/expand.cu",
                 "lzs_tpu/ops/pexpand.py:80")
-KERNELS = (CUMMAX, RCUMMIN, PACK, SYNC, EXPAND)
+KERNELS = (CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES, WALK_DESCENT,
+           PACK, SYNC, EXPAND)
 
 
 def reset_launches() -> None:

@@ -18,10 +18,11 @@ As in the TPU kernel, whose empty record -1 decodes as a copy of offset
 2047 from position -1, a byte with no covering record sets both bits.
 
 On a CUDA tensor ``expand_records`` launches ``csrc/expand.cu`` (one
-block per row, the whole decoded row in shared memory, so a source
-before the current chunk is a plain shared-memory read); on a CPU tensor
-it runs ``expand_records_plain``, which resolves the chains by pointer
-doubling over the whole row.
+block per row; the decoded row sits in shared memory where it fits and is
+read back from the output in device memory above that, so a source
+before the current chunk is a plain read); on a CPU tensor it runs
+``expand_records_plain``, which resolves the chains by pointer doubling
+over the whole row.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ import torch
 
 from . import _kernels
 
-#: widest row the kernel holds in shared memory (bytes)
-MAX_OUT_CAP = 192 * 1024
+#: widest output row: records pack the output position as opos << 13
+MAX_OUT_CAP = 1 << 18
 
 
 def _covering(recfill: torch.Tensor, j: torch.Tensor) -> torch.Tensor:

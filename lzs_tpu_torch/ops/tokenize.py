@@ -1,10 +1,10 @@
 """Greedy token-chain resolution and per-position emission units.
 
-Port of ``lzs_tpu.ops.tokenize`` in its off-TPU form: the token walk is
-``_token_starts_xla`` (in-tile pointer doubling, a tile-serial entry
-thread, descent marking), batched over blocks, with ``torch.gather`` in
-place of the one-hot ``_tile_gather``; the two ownership scans of
-``emission_units_batch`` run on the port's row-scan kernels (pext).
+Port of ``lzs_tpu.ops.tokenize``: the token walk is ``pwalk.walk_starts``
+(in-tile pointer doubling, a tile-serial entry thread, descent marking;
+kernels K11-K13 on the card), batched over blocks; the two ownership
+scans of ``emission_units_batch`` run on the port's row-scan kernels
+(pext).
 
 Every token start carries its head unit (flag + literal, or flag +
 offset + initial length code, <= 18 bits); extension nibbles of a long
@@ -18,9 +18,8 @@ from __future__ import annotations
 import torch
 
 from .. import spec
-from . import pext
+from . import pext, pwalk
 
-_TILE = 128
 _BIG = 0x3FFFFFFF
 
 
@@ -29,48 +28,12 @@ def token_starts(step: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
     step: int32[B, N] bytes consumed by a token starting at each position
     (>= 1 wherever i < n); n: int32[B].
+
+    The pwalk token walk: its three kernels on a CUDA tensor (as the JAX
+    package runs ``pwalk.walk_starts`` on its accelerator), their plain
+    versions on a CPU tensor.
     """
-    b, npos = step.shape
-    dev = step.device
-    pad = (-npos) % _TILE
-    if pad:
-        step = torch.cat([step, torch.ones((b, pad), dtype=step.dtype,
-                                           device=dev)], dim=1)
-    m = step.shape[1]
-    ntiles = m // _TILE
-    rounds = _TILE.bit_length() - 1
-    i = torch.arange(m, dtype=torch.int32, device=dev)
-    base = (torch.arange(ntiles, dtype=torch.int32, device=dev)
-            * _TILE)[:, None]                          # (T, 1)
-
-    # 1. in-tile jump tables by pointer doubling (frozen once past tile)
-    a = (i + step.clamp(min=1)).reshape(b, ntiles, _TILE)
-    tables = [a]
-    for _ in range(rounds):
-        g = torch.gather(a, 2, (a - base).clamp(0, _TILE - 1).long())
-        a = torch.where(a < base + _TILE, g, a)
-        tables.append(a)
-    exits = a                     # first chain position >= tile end
-
-    # 2. entry of each tile: thread the chain exit tile by tile
-    c = torch.zeros((b, 1), dtype=torch.int32, device=dev)
-    entries = []
-    for t in range(ntiles):
-        entries.append(c)
-        b0 = t * _TILE
-        nxt = torch.gather(exits[:, t], 1, (c - b0).clamp(0, _TILE - 1).long())
-        c = torch.where((c >= b0) & (c < b0 + _TILE), nxt, c)
-    pos = torch.cat(entries, dim=1)[:, :, None].expand(b, ntiles, _TILE)
-
-    # 3. descent: last chain position <= i, from the tile entry down
-    it = i.reshape(ntiles, _TILE)
-    for t in range(rounds - 1, -1, -1):
-        nxt = torch.gather(tables[t], 2,
-                           (pos - base).clamp(0, _TILE - 1).long())
-        ok = (pos >= base) & (pos < base + _TILE) & (nxt <= it)
-        pos = torch.where(ok, nxt, pos)
-    starts = (pos == it).reshape(b, m)[:, :npos]
-    return starts & (i[:npos] < n[:, None])
+    return pwalk.walk_starts(step, n)
 
 
 def emission_units_batch(x: torch.Tensor, n: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Named stage spans of the codec's main path.
+"""Named stage spans of the codec's main path and of the raw decoder.
 
-Every stage of compress and decompress runs inside ``stage(name)``: a
+Every stage of compress, decompress and the raw-stream decode
+(``ops.bitpar``) runs inside ``stage(name)``: a
 ``torch.profiler.record_function`` span named ``lzs::<name>``, which a
 profiler trace shows on the host and, as a user annotation, over the
 device work the stage launched. With no profiler running a span costs a
@@ -25,6 +26,10 @@ _times: dict[str, float] | None = None
 #: stage names in pipeline order (compress, then decompress)
 STAGES = ("candidates", "extend", "units", "pack", "sync",
           "parse", "fill", "expand")
+
+#: stage names of the raw-stream decode, in pipeline order: per-bit head
+#: fields, the head walk, slot records, record fill, expansion
+RAW_STAGES = ("heads", "walk", "records", "raw_fill", "raw_expand")
 
 
 def _sync() -> None:

@@ -3,8 +3,9 @@
 
 Runs ``lzs_tpu_torch.BlockCodec(block=32768, device="cuda")`` on the frozen
 8 MiB corpus (``bench.make_corpus``): first ``--reps`` unprofiled
-compress and decompress calls (host-clock wall, median), then one call
-of each under ``torch.profiler``. From the profiler's Chrome trace it
+compress, decompress and raw-decode (``decode_batch_raw`` of the
+codec's own per-block raw payload) calls (host-clock wall, median), then
+one call of each under ``torch.profiler``. From the profiler's Chrome trace it
 keeps only device activities (kernels, memcpy, memset), never the host
 ops that launched them, and merges overlapping intervals, so a parent op
 and its kernels are not counted twice. It prints, per call:
@@ -13,8 +14,9 @@ and its kernels are not counted twice. It prints, per call:
   busy_ms       union of the device activity intervals
   idle          1 - busy / wall, against the profiled and median walls
   stages        busy ms per pipeline stage: an activity belongs to the
-                ``lzs::<stage>`` span (lzs_tpu_torch.trace) that was open
-                on the host when it was launched; "other" is the rest
+                ``lzs::<stage>`` span (lzs_tpu_torch.trace: STAGES, and
+                RAW_STAGES for the raw decode) that was open on the host
+                when it was launched; "other" is the rest
   top           the device activities with the most summed time
 
 Run from the root of a checkout, on a machine with one CUDA device:
@@ -43,6 +45,7 @@ sys.path.insert(0, str(ROOT))
 
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from lzs_tpu_torch import BlockCodec  # noqa: E402
+from lzs_tpu_torch.blocks import pad_blocks  # noqa: E402
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -142,6 +145,12 @@ def main() -> None:
     blob = codec.compress(data)                     # build + warm up
     if codec.decompress(blob) != data:
         raise SystemExit("round trip differs")
+    x, lens = pad_blocks(data, codec.block)
+    comp, clen, _, _, _ = codec.encode_batch(
+        torch.from_numpy(x).cuda(), torch.from_numpy(lens).cuda())
+    _, out_len, _ = codec.decode_batch_raw(comp, clen)
+    if out_len.tolist() != lens.tolist():
+        raise SystemExit("raw decode lengths differ")
     trace_dir = ROOT / "build" / "profile"
     trace_dir.mkdir(parents=True, exist_ok=True)
     result = {
@@ -151,6 +160,9 @@ def main() -> None:
         "decompress": profile_call("decompress",
                                    lambda: codec.decompress(blob),
                                    args.reps, trace_dir),
+        "raw_decode": profile_call(
+            "raw_decode", lambda: codec.decode_batch_raw(comp, clen),
+            args.reps, trace_dir),
     }
     print(json.dumps(result, indent=1), flush=True)
 

@@ -110,6 +110,22 @@ def test_batch_arrays_cross_through_convert(codecs):
         convert.batch_to_torch({"weights": np.zeros(1)}, "cpu")
 
 
+def test_decode_batch_equals_status_and_jax(codecs):
+    port, jax_codec = codecs["greedy"]
+    x, lens = pad_blocks(CASES["corpus_b"], BLOCK)
+    n = torch.from_numpy(lens)
+    comp, _, sbit, sout, _ = port.encode_batch(torch.from_numpy(x), n)
+    out = port.decode_batch(comp, sbit, sout, n)
+    assert torch.equal(out, port.decode_batch_status(comp, sbit, sout, n)[0])
+    jout = jax_codec.decode_batch(jnp.asarray(comp.numpy()),
+                                  jnp.asarray(sbit.numpy()),
+                                  jnp.asarray(sout.numpy()), jnp.asarray(lens))
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(jout).astype(np.uint8))
+    assert out.numpy().reshape(-1)[:int(n.sum())].tobytes() == \
+        CASES["corpus_b"]
+
+
 @pytest.mark.parametrize("name", ["golden", "corpus_a", "rle", "mixed"])
 def test_raw_payload_matches_reference(codecs, name):
     port, _ = codecs["greedy"]

@@ -6,18 +6,22 @@ GPU machine has none), so run them there without the JAX test fixtures:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Edge shapes the main path does not reach (one element, widths that are
-not a multiple of the CTA, 70000-wide rows, hand-made records that set
-every status bit) are compared bitwise with the plain versions on the
-same CUDA tensors, and the codec's bytes on the card with its bytes on
-the CPU.
+not a multiple of the CTA or of a walk tile, 70000-wide rows, empty and
+one-position walks, a huge step, hand-made records that set every status
+bit, output rows past the shared-memory limit) are compared bitwise with
+the plain versions on the same CUDA tensors, as are the bench shapes of
+the raw decoder (303104-position walks, 33792-wide cumsums); the codec's
+bytes and the raw decoder's output on the card are compared with the
+CPU's.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lzs_tpu_torch.blocks import BlockCodec
-from lzs_tpu_torch.ops import _kernels, encode, pexpand, pext, ppack, psync
+from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
+from lzs_tpu_torch.ops import (_kernels, decode, encode, pexpand, pext, ppack,
+                               psync, pwalk)
 
 pytestmark = pytest.mark.gpu
 
@@ -55,6 +59,106 @@ def test_rowscan_kernels(cuda, b, w):
            [pext.cummax_rows_plain(v), pext.rcummin_rows_plain(v)])
     assert (_kernels.CUMMAX.launches, _kernels.RCUMMIN.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("b,w", [(33, 1), (33, 33), (33, 33792)])
+def test_cumsum_kernel(cuda, b, w):
+    v = _rows(w, b, w, cuda)
+    before = _kernels.CUMSUM.launches
+    got = pext.cumsum_rows_wide(v)
+    _equal([got], [pext.cumsum_rows_plain(v)])
+    assert got.dtype == torch.int32
+    assert _kernels.CUMSUM.launches == before + 1
+
+
+def _host_walk(step, n):
+    starts = np.zeros(step.shape[0], bool)
+    i = 0
+    while i < n:
+        starts[i] = True
+        i += max(int(step[i]), 1)
+    return starts
+
+
+@pytest.mark.parametrize("b,npos,maxstep", [
+    (3, 1, 4), (3, 129, 9), (4, 1000, 30), (33, 4096, 300),
+    (2, 303104, 40)])
+def test_walk_kernels(cuda, b, npos, maxstep):
+    rng = np.random.default_rng(npos)
+    step = rng.integers(-1, maxstep, (b, npos)).astype(np.int32)
+    step[0, min(5, npos - 1)] = 1 << 30            # one huge step
+    n = np.array([npos, 0, 1] + [npos - 3] * (b - 3), np.int32)[:b]
+    st = torch.from_numpy(step).to(cuda)
+    nt = torch.from_numpy(n).to(cuda)
+    before = [k.launches for k in (_kernels.WALK_TABLES,
+                                   _kernels.WALK_ENTRIES,
+                                   _kernels.WALK_DESCENT)]
+    got = pwalk.walk_starts(st, nt)
+    assert [k.launches for k in (_kernels.WALK_TABLES, _kernels.WALK_ENTRIES,
+                                 _kernels.WALK_DESCENT)] == [
+        x + 1 for x in before]
+    assert got.dtype == torch.bool and got.shape == (b, npos)
+    m = -(-npos // 128) * 128
+    padded = torch.cat([st, st.new_ones((b, m - npos))], dim=1)
+    tabs, exits = pwalk.walk_tables(padded)
+    _equal([tabs, exits], pwalk.walk_tables_plain(padded))
+    entries = pwalk.walk_entries(exits)
+    _equal([entries], [pwalk.walk_entries_plain(exits)])
+    _equal([pwalk.walk_descent(tabs, entries, nt, npos)],
+           [pwalk.walk_descent_plain(tabs, entries, nt, npos)])
+    want = np.stack([_host_walk(step[i], n[i]) for i in range(b)])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _long_copy_fill(s, out_cap):
+    """Literals, then copies whose sources lie many chunks back."""
+    recs = [(k, 0, k % 251) for k in range(2000)] + [(2000, 1, 1999)]
+    recs += [(out_cap // 2, 0, 65), (out_cap // 2 + 1, 1, 2047),
+             (out_cap - 5000, 1, 3)]
+    return _hand_fill(recs, s, stride=2)
+
+
+@pytest.mark.parametrize("out_cap", [192 * 1024, 1 << 18])
+def test_expand_kernel_wide_rows(cuda, out_cap):
+    s = 4096
+    rows = [(_long_copy_fill(s, out_cap), out_cap),
+            (_long_copy_fill(s, out_cap), out_cap - 777),
+            (_hand_fill([(0, 0, 65), (1, 1, 1)], s), 1000)]
+    rec = torch.from_numpy(np.stack([r[0] for r in rows])).to(cuda)
+    n = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=cuda)
+    got = pexpand.expand_records(rec, n, out_cap)
+    _equal(got, pexpand.expand_records_plain(rec, n, out_cap))
+    assert got[1].tolist() == [0, 0, 0]
+    row = got[0][0].cpu().numpy()        # the offset-1999 copy's period
+    np.testing.assert_array_equal(row[2000:out_cap // 2],
+                                  row[1:out_cap // 2 - 1999])
+
+
+def test_raw_decode_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(9)
+    block = 2048
+    data = (bytes(range(64)) * 30 + b"Q" * 1500
+            + rng.integers(0, 256, 1800, dtype=np.uint8).tobytes()
+            + b"the quick brown fox " * 120)[:5 * block - 300]
+    cpu = BlockCodec(block=block)
+    x, lens = pad_blocks(data, block)
+    comp, clen, _, _, _ = cpu.encode_batch(torch.from_numpy(x),
+                                           torch.from_numpy(lens))
+    want = cpu.decode_batch_raw(comp, clen)
+    gpu = BlockCodec(block=block, device=cuda)
+    _kernels.reset_launches()
+    got = gpu.decode_batch_raw(comp.to(cuda), clen.to(cuda))
+    counts = _kernels.launch_counts()
+    _equal([t.cpu() for t in got], want)
+    for name in ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
+                 "walk_entries", "walk_descent", "rowscan_cummax", "expand"):
+        assert counts[name] > 0, name
+    chain = b"".join(comp[i, :clen[i]].numpy().tobytes()
+                     for i in range(len(lens)))
+    for multi in (False, True):
+        assert (decode.decode_bytes(chain, 1 << 18, multi_stream=multi,
+                                    device=cuda)
+                == decode.decode_bytes(chain, 1 << 18, multi_stream=multi))
 
 
 @pytest.mark.parametrize("end_marker", [None, END])
@@ -130,8 +234,10 @@ def test_codec_on_card_equals_cpu(cuda):
             .tobytes() + bytes(range(64)) * 20)
     for policy in ("greedy", "lazy"):
         gpu = BlockCodec(block=2048, policy=policy, device=cuda)
+        walks = _kernels.WALK_DESCENT.launches
         cpu = BlockCodec(block=2048, policy=policy)
         blob = gpu.compress(data)
+        assert _kernels.WALK_DESCENT.launches == walks + 1
         assert blob == cpu.compress(data)
         assert gpu.decompress(blob) == data
         assert gpu.compress(b"") == cpu.compress(b"")
@@ -152,3 +258,9 @@ def test_wrappers_reject_bad_operands(cuda):
         ppack.pack_rows(v[:, :0], v[:, :0], 64)
     with pytest.raises(ValueError):
         pexpand.expand_records(v, v[:, 0].contiguous(), 1 << 20)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        pwalk.walk_tables(v[:, :63].contiguous())
+    with pytest.raises(ValueError):
+        pwalk.walk_entries(v)
+    with pytest.raises(TypeError):
+        pext.cumsum_rows_wide(v.to(torch.int64))

@@ -1,0 +1,238 @@
+"""lzs_tpu_torch: the raw-stream decoder (decode, bitpar) against JAX.
+
+Raw LZS streams go through ``lzs_tpu.ops.decode.decode_batch`` (engine
+"bits": its Pallas walk, cumsum, cummax and expansion kernels in
+interpret mode; and engine "scan", the bit-serial oracle) and through the
+port's ``decode_batch`` on CPU tensors (every kernel's plain version).
+Bytes, output lengths and end-marker counts must be equal (tolerance 0)
+at batch >= 32 with both ``multi_stream`` values, on the fuzz set of
+tests/test_ops.py (concatenated and truncated rows included), the edge
+cases of tests/test_ops.py, a 2^18-byte output checked against
+``lzs_tpu.reference``, and the port's own block payloads through
+``BlockCodec.decode_batch_raw``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lzs_tpu import reference as ref
+from lzs_tpu import spec
+from lzs_tpu.blocks import BlockCodec as JaxBlockCodec
+from lzs_tpu.ops import bitpar as jbitpar
+from lzs_tpu.ops import decode as jdecode
+from lzs_tpu.utils import native
+from lzs_tpu_torch import convert
+from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
+from lzs_tpu_torch.ops import bitpar, decode
+
+
+def _batch(streams):
+    cap = max(len(s) for s in streams) + 8
+    buf = np.zeros((len(streams), cap), np.uint8)
+    lens = np.zeros(len(streams), np.int32)
+    for i, s in enumerate(streams):
+        buf[i, :len(s)] = np.frombuffer(s, np.uint8)
+        lens[i] = len(s)
+    return buf, lens
+
+
+def _port(buf, lens, **kw):
+    return [t.numpy() for t in decode.decode_batch(
+        torch.from_numpy(buf), torch.from_numpy(lens), **kw)]
+
+
+def _jax(buf, lens, **kw):
+    return [np.asarray(a) for a in jdecode.decode_batch(
+        jnp.asarray(buf), jnp.asarray(lens), **kw)]
+
+
+def _assert_equal(got, want):
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w.astype(g.dtype))
+        assert g.dtype == w.dtype or (g.dtype == np.uint8 and w.max() < 256)
+
+
+@pytest.fixture(scope="module")
+def fuzz():
+    """The fuzz set of test_ops.test_bitpar_matches_scan_engine: 30
+    streams of random, RLE, periodic and already-compressed data, two
+    concatenated streams and a truncated one (batch 32)."""
+    rng = np.random.default_rng(7)
+    datas = []
+    for _ in range(30):
+        kind = rng.integers(0, 4)
+        n = int(rng.integers(0, 700))
+        if kind == 0:
+            d = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+        elif kind == 1:
+            d = bytes([int(rng.integers(0, 4))]) * n
+        elif kind == 2:
+            seed = bytes(rng.integers(97, 123, 13, dtype=np.uint8))
+            d = (seed * (n // len(seed) + 1))[:n]
+        else:
+            d = ref.lzs_compress(bytes(rng.integers(0, 256, n,
+                                                    dtype=np.uint8)))
+        datas.append(d)
+    streams = [ref.lzs_compress(d) for d in datas]
+    streams.append(streams[0] + streams[1])
+    streams.append(streams[2][:max(len(streams[2]) // 2, 1)])
+    buf, lens = _batch(streams)
+    return buf, lens, datas
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("engine", ["bits", "scan"])
+def test_fuzz_matches_jax_engines(fuzz, multi, engine):
+    buf, lens, datas = fuzz
+    assert len(lens) >= 32
+    got = _port(buf, lens, out_cap=2048, multi_stream=multi)
+    _assert_equal(got, _jax(buf, lens, out_cap=2048, multi_stream=multi,
+                            engine=engine))
+    for i, d in enumerate(datas):
+        assert got[0][i, :got[1][i]].tobytes() == d
+    joined = datas[0] + datas[1] if multi else datas[0]
+    assert got[0][30, :got[1][30]].tobytes() == joined
+    assert got[2][30] == (2 if multi else 1)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_make_decoder_equals_decode_batch(fuzz, multi):
+    buf, lens, _ = fuzz
+    dec = decode.make_decoder(buf.shape[1], 2048, multi_stream=multi)
+    got = [t.numpy() for t in dec(torch.from_numpy(buf),
+                                  torch.from_numpy(lens))]
+    _assert_equal(got, _port(buf, lens, out_cap=2048, multi_stream=multi))
+    jdec = jdecode.make_decoder(buf.shape[1], 2048, multi_stream=multi)
+    _assert_equal(got, [np.asarray(a) for a in jdec(jnp.asarray(buf),
+                                                    jnp.asarray(lens))])
+
+
+def test_multi_stream_decode():
+    a, b = b"first stream data " * 3, b"second one " * 5
+    stream = ref.lzs_compress(a) + ref.lzs_compress(b)
+    assert decode.decode_bytes(stream, 4096, multi_stream=True) == a + b
+    assert decode.decode_bytes(stream, 4096, multi_stream=False) == a
+
+
+def test_zero_fill_corrupt_offset():
+    w = ref.BitWriter()
+    w.put(1, 1)
+    w.put(1, 1)
+    w.put(9, 7)                          # offset 9 with empty history
+    w.put(0b1100, 4)                     # length 5
+    w.put(spec.END_MARKER_VALUE, spec.END_MARKER_BITS)
+    w.pad_to_byte()
+    assert decode.decode_bytes(w.getvalue(), 4096) == b"\x00" * 5
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_every_truncation_matches_jax(multi):
+    stream = ref.lzs_compress(b"some data to compress some data")
+    full = ref.lzs_decompress(stream)
+    buf, lens = _batch([stream[:cut] for cut in range(len(stream))])
+    got = _port(buf, lens, out_cap=4096, multi_stream=multi)
+    _assert_equal(got, _jax(buf, lens, out_cap=4096, multi_stream=multi))
+    for row, m in zip(got[0], got[1]):
+        assert full.startswith(row[:m].tobytes())
+
+
+def test_output_capacity_clamp():
+    data = b"R" * 300
+    stream = ref.lzs_compress(data)
+    assert decode.decode_bytes(stream, 100) == data[:100]
+    out, out_len, markers = decode.decode_block(
+        torch.from_numpy(np.frombuffer(stream, np.uint8).copy()),
+        torch.tensor(len(stream), dtype=torch.int32), out_cap=100)
+    assert out.shape == (100,) and int(out_len) == 100 and int(markers) == 0
+
+
+@pytest.mark.parametrize("period", [1, 3, 27, 1999])
+def test_long_single_record_copy(period):
+    seed = bytes(i % 251 for i in range(period)) if period > 1 else b"Q"
+    data = (seed * (8192 // len(seed) + 1))[:8192]
+    assert decode.decode_bytes(ref.lzs_compress(data), 8192) == data
+
+
+@pytest.mark.parametrize("shape", [(32, 1), (32, 7), (32, 16), (32, 17),
+                                   (32, 4, 100), (32, 1001)])
+def test_seg_reverse_sum_matches_jax(shape):
+    rng = np.random.default_rng(sum(shape))
+    a = rng.integers(0, 16, shape).astype(np.int32)
+    g = (rng.random(shape) < 0.8).astype(np.int32)
+    want = np.asarray(jbitpar._seg_reverse_sum(jnp.asarray(a),
+                                               jnp.asarray(g)))
+    got = bitpar._seg_reverse_sum(torch.from_numpy(a), torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("c0,cpad", [(37, 40), (1024, 1024), (1100, 1024)])
+def test_bit_windows_match_jax(c0, cpad):
+    comp = np.random.default_rng(c0).integers(0, 256, (32, c0),
+                                              dtype=np.uint8)
+    want = np.asarray(jbitpar._bit_windows(jnp.asarray(comp), cpad))
+    got = bitpar._bit_windows(torch.from_numpy(comp), cpad)
+    assert got.dtype == torch.int32 and got.shape == (32, 8 * cpad)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_decode_block_at_max_out_cap_matches_reference():
+    rng = np.random.default_rng(11)
+    text = bytes(range(32, 127)) * 100
+    parts = []
+    for k in rng.integers(0, len(text) - 800, 200):
+        parts.append(bytes(rng.integers(0, 256, int(rng.integers(1, 3000)),
+                                        dtype=np.uint8)))
+        parts.append(text[int(k):int(k) + int(rng.integers(50, 800))])
+    data = b"".join(parts)[:bitpar.MAX_OUT_CAP - 2000]
+    stream = native.compress(data)
+    assert len(stream) > 180_000
+    want = ref.lzs_decompress(stream)
+    assert want == data
+    assert decode.decode_bytes(stream, bitpar.MAX_OUT_CAP) == want
+
+
+def test_out_cap_over_max_or_scan_engine_is_not_ported():
+    buf = torch.zeros((1, 8), dtype=torch.uint8)
+    n = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        decode.decode_batch(buf, n, out_cap=bitpar.MAX_OUT_CAP + 1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        decode.decode_batch(buf, n, out_cap=64, engine="scan")
+    with pytest.raises(ValueError):
+        bitpar.decode_batch_bits(buf, n, out_cap=0)
+
+
+def test_block_codec_decode_batch_raw_matches_jax():
+    rng = np.random.default_rng(5)
+    block = 2048
+    data = (bytes(range(64)) * 30 + b"Q" * 1500
+            + rng.integers(0, 256, 1800, dtype=np.uint8).tobytes()
+            + b"the quick brown fox " * 120)[:4 * block - 300]
+    codec = BlockCodec(block=block)
+    x, lens = pad_blocks(data, block)
+    comp, clen, _, _, _ = codec.encode_batch(torch.from_numpy(x),
+                                             torch.from_numpy(lens))
+    out, out_len, markers = codec.decode_batch_raw(comp, clen)
+    assert out.shape == (len(lens), block)
+    assert out_len.tolist() == lens.tolist()
+    # a full block's end marker lies at out_cap = block, past the output:
+    # it is not read (the scan oracle stops when the output is full)
+    assert markers.tolist() == (lens < block).astype(int).tolist()
+    assert b"".join(out[i, :lens[i]].numpy().tobytes()
+                    for i in range(len(lens))) == data
+
+    jcodec = JaxBlockCodec(block=block)
+    want = jcodec.decode_batch_raw(jnp.asarray(comp.numpy()),
+                                   jnp.asarray(clen.numpy()))
+    got = convert.batch_to_numpy({"out_len": out_len, "markers": markers})
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(want[0]).astype(np.uint8))
+    np.testing.assert_array_equal(got["out_len"], np.asarray(want[1]))
+    np.testing.assert_array_equal(got["markers"], np.asarray(want[2]))
+    moved = convert.batch_to_torch(
+        {"comp": np.asarray(comp), "clen": np.asarray(clen)}, "cpu")
+    again = codec.decode_batch_raw(moved["comp"], moved["clen"])
+    assert torch.equal(again[0], out)

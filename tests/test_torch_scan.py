@@ -45,10 +45,22 @@ def test_scans_match_jax_pext(b, w):
         got_min, np.asarray(jpext.rcummin_rows(jnp.asarray(v))))
 
 
+@pytest.mark.parametrize("w,tile", [(1000, 8192), (4096, 1024)])
+def test_cumsum_rows_wide_matches_jax_pext(w, tile):
+    # batch 32 (F4); the 0x3FFFFFFF entries make the sums wrap like int32
+    v = _rows(w + tile, 32, w)
+    got = pext.cumsum_rows_wide(torch.from_numpy(v), tile=tile)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jpext.cumsum_rows_wide(jnp.asarray(v),
+                                                      tile=tile)))
+
+
 def test_scan_plain_versions_are_the_cpu_path():
     v = torch.from_numpy(_rows(5, 4, 300))
     assert torch.equal(pext.cummax_rows(v), pext.cummax_rows_plain(v))
     assert torch.equal(pext.rcummin_rows(v), pext.rcummin_rows_plain(v))
+    assert torch.equal(pext.cumsum_rows_wide(v), pext.cumsum_rows_plain(v))
 
 
 def test_scan_rejects_unsupported_device():
@@ -61,6 +73,8 @@ def test_port_imports_no_jax():
     code = ("import sys, lzs_tpu_torch, lzs_tpu_torch.blocks, "
             "lzs_tpu_torch.convert\n"
             "import lzs_tpu_torch.ops.encode, lzs_tpu_torch.ops.decode2\n"
+            "import lzs_tpu_torch.ops.decode, lzs_tpu_torch.ops.bitpar, "
+            "lzs_tpu_torch.ops.pwalk\n"
             "assert 'jax' not in sys.modules, sorted(sys.modules)\n"
             "assert 'lzs_tpu' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

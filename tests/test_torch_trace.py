@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from lzs_tpu_torch import BlockCodec, trace
+from lzs_tpu_torch.blocks import pad_blocks
 from lzs_tpu_torch.ops import ppack
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -40,6 +41,22 @@ def test_stage_times_cover_the_pipeline():
     with trace.stage("pack"):
         pass                     # outside stage_times: nothing collected
     assert trace._times is None
+
+
+def test_raw_stage_times_cover_the_raw_decoder():
+    data = np.random.default_rng(4).integers(97, 101, 3000).astype(
+        np.uint8).tobytes()
+    codec = BlockCodec(block=1024)
+    x, lens = pad_blocks(data, 1024)
+    comp, clen, _, _, _ = codec.encode_batch(torch.from_numpy(x),
+                                             torch.from_numpy(lens))
+    with trace.stage_times() as times:
+        out, out_len, _ = codec.decode_batch_raw(comp, clen)
+    assert set(times) == set(trace.RAW_STAGES)
+    assert not set(trace.RAW_STAGES) & set(trace.STAGES)
+    assert out_len.tolist() == lens.tolist()
+    assert b"".join(out[i, :m].numpy().tobytes()
+                    for i, m in enumerate(lens)) == data
 
 
 def test_stage_spans_reach_the_profiler():
