@@ -14,12 +14,16 @@ non-zero):
               once) into one library and load it;
   3. kernels  every kernel wrapper call of one greedy compress +
               decompress of the frozen 8 MiB corpus (256 blocks x 32768
-              bytes), of one decode_batch_raw of its raw payload and of
+              bytes; the match search's per-k kernels run 11 times, k = 2
+              .. 12, and its probe tier's gather and rank once or more
+              per wave), of one decode_batch_raw of its raw payload and of
               the 2^18 decode_block is recorded as it runs; each recorded
               call is then held against the kernel's plain torch version
-              on the same inputs, bitwise, and the first call of each
-              shape is timed with CUDA events (so every kernel is checked
-              at exactly the shapes its paths give it);
+              on the same inputs, bitwise, and the first and the last call
+              of each set of tensor shapes is timed with CUDA events (so
+              every kernel is checked at exactly the shapes its paths give
+              it), beside its bound and, where one PyTorch call computes
+              the same function, that call;
   4. main     BlockCodec(block=32768, device="cuda") compress + decompress
               of the corpus with every launch counter reset just before;
               the round trip must be exact, the raw payload must equal the
@@ -39,9 +43,10 @@ non-zero):
   7. corrupt  a flipped payload byte raises ValueError.
 
 Then one JSON line with every kernel's name, route, source, the TPU
-kernel it replaces, its launches in phases 4 and 5, its error, both
-times at its widest input on a counted path ("shape") and both times at
-every shape (``at``), and last the line {"ok": true, "device": {...}}.
+kernel it replaces, its launches in phases 4 and 5, its error, its
+times (kernel, plain, library call or null), its bound and what bounds
+it at its widest input on a counted path ("shape"), the same at every
+shape (``at``), and last the line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the port; nothing of jax or of the JAX package.
 """
@@ -50,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import json
 import pathlib
@@ -66,7 +72,8 @@ sys.path.insert(0, str(ROOT))
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks  # noqa: E402
 from lzs_tpu_torch.ops import (  # noqa: E402
-    _kernels, bitpar, decode, pexpand, pext, ppack, psync, pwalk)
+    _kernels, bitpar, decode, pcand, pexpand, pext, pgather, ppack, psync,
+    pwalk)
 from lzs_tpu_torch import spec, trace  # noqa: E402
 
 BLOCK = 1 << 15
@@ -75,8 +82,10 @@ REPS = 10
 
 #: kernels each path must launch (the counters are reset before each)
 PATH_KERNELS = {
-    "main": ("rowscan_cummax", "rowscan_rcummin", "pack", "sync", "expand",
-             "walk_tables", "walk_entries", "walk_descent"),
+    "main": ("perk_keys", "perk_back_acc", "ext_breaks", "ext_fold",
+             "rank_mask", "gather_big", "rowscan_cummax", "rowscan_rcummin",
+             "pack", "sync", "expand", "walk_tables", "walk_entries",
+             "walk_descent"),
     "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
 }
@@ -158,6 +167,12 @@ def phase_build() -> None:
 
 #: each kernel's wrapper (module, attribute) and its plain version
 WRAPPERS = {
+    "perk_keys": (pcand, "perk_keys", pcand.perk_keys_plain),
+    "perk_back_acc": (pcand, "perk_back_acc", pcand.perk_back_acc_plain),
+    "ext_breaks": (pext, "ext_breaks", pext.ext_breaks_plain),
+    "ext_fold": (pext, "ext_fold", pext.ext_fold_plain),
+    "rank_mask": (pext, "rank_mask", pext.rank_mask_plain),
+    "gather_big": (pgather, "gather_big", pgather.gather_big_plain),
     "rowscan_cummax": (pext, "cummax_rows", pext.cummax_rows_plain),
     "rowscan_rcummin": (pext, "rcummin_rows", pext.rcummin_rows_plain),
     "rowscan_cumsum": (pext, "cumsum_rows_wide",
@@ -168,6 +183,48 @@ WRAPPERS = {
     "pack": (ppack, "pack_rows", ppack.pack_rows_plain),
     "sync": (psync, "sync_records", psync.sync_records_plain),
     "expand": (pexpand, "expand_records", pexpand.expand_records_plain),
+}
+
+#: the PyTorch call that computes a kernel's function, where there is one
+#: (timed beside the kernel as a yardstick; the port never calls it): each
+#: entry takes the call's arguments and returns the call, ready to time.
+#: torch.gather takes int64 indices only, so gather_big's are widened
+#: before the timing (the clamp is a no-op on the path's in-range indices).
+LIBRARY = {
+    "rowscan_cummax": lambda v: functools.partial(torch.cummax, v, dim=1),
+    "rowscan_rcummin": lambda v: lambda: torch.cummin(
+        v.flip(1), dim=1).values.flip(1),
+    "rowscan_cumsum": lambda v, tile=0: functools.partial(
+        torch.cumsum, v, dim=1, dtype=torch.int32),
+    "gather_big": lambda tab, idx: functools.partial(
+        torch.gather, tab, 1, idx.clamp(0, tab.shape[1] - 1).long()),
+}
+
+#: H100 SXM peaks: device memory bytes/s (NVIDIA's data sheet), and int32
+#: operations/s outside the tensor cores, from the lanes: 132 SMs x 64
+#: INT32 lanes x 1.98 GHz boost clock
+MEMORY_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+#: the fewest int32 operations the function needs per element of its
+#: first operand (expand: per output byte; gather_big: per query),
+#: counted from its definition
+#: and not from a kernel's code: a scan 1 (its operator); rank_mask 2
+#: (add, the exclusive difference); gather_big 2 (the clamp); perk_keys 5
+#: (compare, select, max, shift, or); perk_back_acc 18 (unpack 2 keys 5,
+#: window and segment tests 4, hit 4, pack 4, max 1); ext_breaks 41 (capped
+#: and head 11, break info 7, min 1, next break, steal and probe 14, pack
+#: 8); ext_fold 17; walk_tables 21 (7 table levels, a composition and a
+#: freeze test each); walk_entries 3 per tile of 128 exits; walk_descent
+#: 22 per position over its 7 table entries; pack 8 per unit (offset,
+#: word, shift, two-word OR); sync 18 per unit; expand 4 per byte (its
+#: record, the source, a load, a store)
+OPS_PER_ELEMENT = {
+    "perk_keys": 5, "perk_back_acc": 18, "ext_breaks": 41, "ext_fold": 17,
+    "rank_mask": 2, "gather_big": 2,
+    "rowscan_cummax": 1, "rowscan_rcummin": 1, "rowscan_cumsum": 1,
+    "walk_tables": 21, "walk_entries": 3 / 128, "walk_descent": 22 / 7,
+    "pack": 8, "sync": 18, "expand": 4,
 }
 
 
@@ -193,11 +250,40 @@ def recorded_calls():
             setattr(module, attr, wrapper)
 
 
-def _compare(name: str, kernel_fn, plain_fn, timed: bool) -> dict:
-    """Kernel vs plain on the same inputs: bitwise equal; both timed if
-    asked."""
-    got = kernel_fn()
-    want = plain_fn()
+def _bytes_moved(name: str, args: tuple, kw: dict, outs: tuple) -> int:
+    """Bytes the function must move: each input read once and each output
+    written once, or less where this run's data needs less."""
+    if name == "walk_entries":
+        # one exit read per tile the chain enters, one entry written per tile
+        (entries,) = outs
+        base = 128 * torch.arange(entries.shape[1], device=entries.device)
+        entered = ((entries >= base) & (entries < base + 128)).sum()
+        return 4 * (entries.numel() + int(entered))
+    if name == "ext_fold":
+        # ext_h is read at heads only, score where not capped
+        packed = args[0]
+        heads = int(((packed >> 2) & 1).sum())
+        capped = int(((packed >> 1) & 1).sum())
+        return 4 * (3 * packed.numel() + heads - capped)
+    if name == "gather_big":
+        # an index read and an output written per query, and each table
+        # entry that the queries touch read once
+        tab, idx = args
+        touched = torch.unique(
+            torch.arange(tab.shape[0], device=idx.device)[:, None]
+            * tab.shape[1] + idx.clamp(0, tab.shape[1] - 1).long())
+        return 4 * (2 * idx.numel() + touched.numel())
+    tensors = [a for a in (*args, *kw.values(), *outs) if torch.is_tensor(a)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _compare(name: str, args: tuple, kw: dict, timed: bool) -> dict:
+    """Kernel vs plain on the same inputs: bitwise equal; if asked, both
+    timed, the library call where there is one, and the bound."""
+    module, attr, plain = WRAPPERS[name]
+    wrapper = getattr(module, attr)
+    got = wrapper(*args, **kw)
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -213,8 +299,17 @@ def _compare(name: str, kernel_fn, plain_fn, timed: bool) -> dict:
                              f"max abs err {err}")
     if not timed:
         return {"max_abs_err": err}
-    return {"max_abs_err": err, "ms": cuda_ms(kernel_fn),
-            "plain_ms": cuda_ms(plain_fn)}
+    library = LIBRARY.get(name)
+    bytes_ms = 1e3 * _bytes_moved(name, args, kw, got) / MEMORY_BYTES_PER_S
+    elements = got[0].numel() if name == "expand" else _numel(name, args)
+    ops_ms = 1e3 * OPS_PER_ELEMENT[name] * elements / INT32_OPS_PER_S
+    return {"max_abs_err": err,
+            "ms": cuda_ms(lambda: wrapper(*args, **kw)),
+            "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
+            "library_ms": (cuda_ms(library(*args, **kw))
+                           if library else None),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def _shape_key(args: tuple, kw: dict) -> str:
@@ -225,7 +320,16 @@ def _shape_key(args: tuple, kw: dict) -> str:
                      + [f"{k}={one(v)}" for k, v in sorted(kw.items())])
 
 
-def _numel(args: tuple) -> int:
+def _tensor_key(args: tuple, kw: dict) -> str:
+    """The shapes of a call's tensors alone."""
+    return ", ".join("x".join(map(str, a.shape))
+                     for a in (*args, *kw.values()) if torch.is_tensor(a))
+
+
+def _numel(name: str, args: tuple) -> int:
+    """A call's size: its first tensor's elements (gather_big: queries)."""
+    if name == "gather_big":
+        return args[1].numel()
     return next(a.numel() for a in args if torch.is_tensor(a))
 
 
@@ -254,34 +358,53 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
             raise AssertionError(f"{path}: kernels called {called}, listed "
                                  f"{sorted(names)}")
 
+    # context: the library row sort between perk_keys and perk_back_acc
+    args, kw = calls["main"]["perk_keys"][0]
+    keys = pcand.perk_keys(*args, **kw)
+    log("kernels", f"context: torch.sort of one level's keys "
+        f"({'x'.join(map(str, keys.shape))} int32) "
+        f"{cuda_ms(lambda: torch.sort(keys, dim=1)):.4f} ms")
+    del keys
+
     results = {}
     for path, by_kernel in calls.items():
         for name, recorded in by_kernel.items():
-            module, attr, plain = WRAPPERS[name]
-            wrapper = getattr(module, attr)
-            shapes = {}
-            for args, kw in recorded:
-                key = _shape_key(args, kw)
-                r = _compare(name, lambda: wrapper(*args, **kw),
-                             lambda: plain(*args, **kw), key not in shapes)
+            # time the first and the last call of each set of tensor
+            # shapes: the per-k kernels' 11 calls differ only in k
+            last = {_tensor_key(a, kw): i
+                    for i, (a, kw) in enumerate(recorded)}
+            shapes, seen = {}, set()
+            for i, (args, kw) in enumerate(recorded):
+                key, tkey = _shape_key(args, kw), _tensor_key(args, kw)
+                timed = key not in shapes and (tkey not in seen
+                                               or i == last[tkey])
+                seen.add(tkey)
+                r = _compare(name, args, kw, timed)
                 entry = shapes.setdefault(key, {
                     "path": path, "shape": key, "calls": 0,
-                    "numel": _numel(args), **r})
+                    "numel": _numel(name, args), **r})
                 entry["calls"] += 1
             recorded.clear()
             res = results.setdefault(name, {"max_abs_err": 0, "at": []})
             for e in shapes.values():
                 res["at"].append(e)
+                times = ("not timed" if "ms" not in e else
+                         f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
+                         f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})"
+                         + ("" if e["library_ms"] is None else
+                            f", library {e['library_ms']:.4f} ms"))
                 log("kernels", f"{path} {name} ({e['shape']}) x{e['calls']}: "
-                    f"equal to plain (tolerance 0, bitwise), kernel "
-                    f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms")
+                    f"equal to plain (tolerance 0, bitwise), {times}")
             torch.cuda.empty_cache()
-    # the headline time of a kernel: its widest input on a counted path
+    # the headline time of a kernel: its widest timed input on a counted
+    # path (the first such call)
     for res in results.values():
-        top = max((e for e in res["at"] if e["path"] in PATH_KERNELS),
+        top = max((e for e in res["at"]
+                   if e["path"] in PATH_KERNELS and "ms" in e),
                   key=lambda e: e["numel"])
-        res.update(shape=top["shape"], ms=top["ms"],
-                   plain_ms=top["plain_ms"])
+        res.update({k: top[k] for k in ("shape", "ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by")})
         for e in res["at"]:
             del e["numel"]
     return results

@@ -8,6 +8,7 @@ Layout (mirrors ``lzs_tpu``):
   spec.py        wire-format constants
   ops/           the container codec path and the raw-stream decoder:
                    sortmatch.py  sort-based match search + run extension
+                   pcand.py      per-k match-search glue (kernels + plain)
                    tokenize.py   greedy token walk + emission units
                    pwalk.py      token walk (kernels + plain form)
                    bitpack.py    bit pack (ppack.py: kernel + plain form)
@@ -15,7 +16,8 @@ Layout (mirrors ``lzs_tpu``):
                    decode2.py    sync-parallel container decoder
                    bitpar.py     per-bit parallel raw-stream decoder
                    decode.py     raw decode entry points (engine "bits")
-                   pext.py       row scans (kernels + plain form)
+                   pext.py       row scans and the extension scans
+                                 (kernels + plain form)
                    pexpand.py    copy expansion (kernel + plain form)
                    _kernels.py   nvcc build, ctypes loader, launch counts
   csrc/          the hand-written CUDA kernels (sm_90a)
@@ -24,7 +26,9 @@ Layout (mirrors ``lzs_tpu``):
   trace.py       named stage spans (profiler annotations, stage times)
 
 A kernel runs for a tensor on a CUDA device; a tensor on the CPU runs
-the kernel's plain torch version. Nothing falls back.
+the kernel's plain torch version. Nothing falls back. The entry points
+(``BlockCodec``, ``ops.decode.decode_bytes``, ``convert.codec_from_jax``)
+run on the card unless the caller asks for ``device="cpu"``.
 """
 
 from .spec import DEFAULT_CONFIG, LzsConfig, compressed_max

@@ -67,14 +67,17 @@ def concat_streams(comp: torch.Tensor, lens: torch.Tensor) -> tuple[
 class BlockCodec:
     """Batch codec over fixed-size blocks on one torch ``device``.
 
-    ``policy``: "greedy" (reference byte parity) or "lazy" (1-token
-    lookahead: usually smaller output, still a valid LZS stream; the
-    container flags byte records which policy produced a blob).
+    ``device`` is the CUDA card unless the caller names another ("cpu"
+    runs every kernel's plain torch version); without a card the default
+    codec raises at its first use. ``policy``: "greedy" (reference byte
+    parity) or "lazy" (1-token lookahead: usually smaller output, still a
+    valid LZS stream; the container flags byte records which policy
+    produced a blob).
     """
     block: int = DEFAULT_BLOCK
     span: int = enc_ops.SYNC_SPAN
     policy: str = "greedy"
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
 
     def __post_init__(self):
         if self.policy not in ("greedy", "lazy"):

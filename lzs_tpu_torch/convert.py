@@ -28,8 +28,9 @@ BATCH_DTYPES = {
 
 
 def codec_from_jax(jax_codec,
-                   device: torch.device | str = "cpu") -> BlockCodec:
-    """The port's BlockCodec with a JAX codec's settings on ``device``.
+                   device: torch.device | str = "cuda") -> BlockCodec:
+    """The port's BlockCodec with a JAX codec's settings on ``device``
+    (the CUDA card unless the caller names another).
 
     The JAX codec's ``chunk`` sizes only its brute-force search backend;
     its BlockCodec always uses the sort-based search, whose bytes do not

@@ -74,6 +74,31 @@ __device__ __forceinline__ int block_scan(int v, Op op, int* warp_tot,
   return op(before, v);
 }
 
+// Scans one row of n elements with the whole CTA: the row is walked in
+// tiles of blockDim.x consecutive elements (from the row's end when
+// Reverse), each tile is scanned with block_scan and a carry threads the
+// tiles together. For every element idx the same thread first calls
+// io.load(idx), which returns the value to scan, and then
+// io.store(idx, incl, excl) with the inclusive and the exclusive scan in
+// walk order (excl is Op::identity at the walk's first element). An Io
+// may keep what its load read in its own members for the store: each
+// thread owns its copy. Every thread of the CTA must call it.
+template <class Op, bool Reverse, class Io>
+__device__ __forceinline__ void row_scan(int n, Io& io) {
+  __shared__ int warp_tot[32];
+  const Op op{};
+  int carry = Op::identity;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int k = base + threadIdx.x;
+    const int idx = Reverse ? n - 1 - k : k;
+    const int v = k < n ? io.load(idx) : Op::identity;
+    int excl, total;
+    const int s = block_scan(v, op, warp_tot, &excl, &total);
+    if (k < n) io.store(idx, op(carry, s), op(carry, excl));
+    carry = op(carry, total);
+  }
+}
+
 // Floor division and modulo (JAX's // and % on int32; C++ truncates).
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;

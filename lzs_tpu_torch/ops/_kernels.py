@@ -45,6 +45,12 @@ _SIGNATURES = {
     "lzs_cummax_rows": [_P, _P, _I, _I],
     "lzs_rcummin_rows": [_P, _P, _I, _I],
     "lzs_cumsum_rows": [_P, _P, _I, _I],
+    "lzs_rank_mask_rows": [_P, _P, _I, _I],
+    "lzs_gather_rows": [_P, _P, _P, _I, _I, _I],
+    "lzs_perk_keys": [_P, _P, _P, _I, _I, _I],
+    "lzs_perk_back_acc": [_P, _P, _P, _P, _I, _I, _I, _I],
+    "lzs_ext_breaks": [_P, _P, _P, _P, _I, _I, _I],
+    "lzs_ext_fold": [_P, _P, _P, _P, _I, _I, _I],
     "lzs_walk_tables": [_P, _P, _P, _I, _I],
     "lzs_walk_entries": [_P, _P, _I, _I],
     "lzs_walk_descent": [_P, _P, _P, _P, _I, _I, _I],
@@ -191,6 +197,21 @@ RCUMMIN = Kernel("rowscan_rcummin", "lzs_rcummin_rows",
 CUMSUM = Kernel("rowscan_cumsum", "lzs_cumsum_rows",
                 "lzs_tpu_torch/csrc/rowscan.cu",
                 "lzs_tpu/ops/pext.py:194")
+RANK_MASK = Kernel("rank_mask", "lzs_rank_mask_rows",
+                   "lzs_tpu_torch/csrc/rowscan.cu",
+                   "lzs_tpu/ops/pext.py:108")
+GATHER_BIG = Kernel("gather_big", "lzs_gather_rows",
+                    "lzs_tpu_torch/csrc/gather.cu",
+                    "lzs_tpu/ops/pgather.py:29")
+PERK_KEYS = Kernel("perk_keys", "lzs_perk_keys", "lzs_tpu_torch/csrc/cand.cu",
+                   "lzs_tpu/ops/pcand.py:49")
+PERK_BACK_ACC = Kernel("perk_back_acc", "lzs_perk_back_acc",
+                       "lzs_tpu_torch/csrc/cand.cu",
+                       "lzs_tpu/ops/pcand.py:58,69")
+EXT_BREAKS = Kernel("ext_breaks", "lzs_ext_breaks",
+                    "lzs_tpu_torch/csrc/extend.cu", "lzs_tpu/ops/pext.py:65")
+EXT_FOLD = Kernel("ext_fold", "lzs_ext_fold", "lzs_tpu_torch/csrc/extend.cu",
+                  "lzs_tpu/ops/pext.py:93")
 WALK_TABLES = Kernel("walk_tables", "lzs_walk_tables",
                      "lzs_tpu_torch/csrc/walk.cu",
                      "lzs_tpu/ops/pwalk.py:71")
@@ -206,8 +227,9 @@ SYNC = Kernel("sync", "lzs_sync_rows", "lzs_tpu_torch/csrc/sync.cu",
               "lzs_tpu/ops/psync.py:57")
 EXPAND = Kernel("expand", "lzs_expand_rows", "lzs_tpu_torch/csrc/expand.cu",
                 "lzs_tpu/ops/pexpand.py:80")
-KERNELS = (CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES, WALK_DESCENT,
-           PACK, SYNC, EXPAND)
+KERNELS = (PERK_KEYS, PERK_BACK_ACC, EXT_BREAKS, EXT_FOLD, RANK_MASK,
+           GATHER_BIG, CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES,
+           WALK_DESCENT, PACK, SYNC, EXPAND)
 
 
 def reset_launches() -> None:
@@ -247,3 +269,30 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def launch_rows(kernel: Kernel, operands: dict[str, torch.Tensor],
+                *scalars: int, dtype: torch.dtype = torch.int32
+                ) -> torch.Tensor:
+    """Launch a kernel over (B, N) rows and return its int32 (B, N) output.
+
+    The first operand sets (B, N) and has ``dtype``; an operand named
+    ``n`` (block lengths) is int32 (B,), every other one int32 (B, N).
+    Each is checked, a fresh output is allocated, and the kernel runs as
+    ``kernel(*operands, out, B, N, *scalars)`` unless the rows are empty.
+    """
+    names = list(operands)
+    first = operands[names[0]]
+    check(first, names[0], dtype)
+    if first.dim() != 2:
+        raise ValueError(f"{names[0]}: expected (B, N), got "
+                         f"{tuple(first.shape)}")
+    b, npos = first.shape
+    for name in names[1:]:
+        check(operands[name], name, torch.int32,
+              (b,) if name == "n" else (b, npos))
+    out = torch.empty((b, npos), dtype=torch.int32, device=first.device)
+    if b and npos:
+        kernel.launch(first.device, *(t.data_ptr() for t in operands.values()),
+                      out.data_ptr(), b, npos, *scalars)
+    return out

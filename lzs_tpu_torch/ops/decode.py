@@ -63,8 +63,9 @@ def make_decoder(in_cap: int, out_cap: int, *, multi_stream: bool = False):
 
 
 def decode_bytes(data: bytes, out_cap: int, *, multi_stream: bool = False,
-                 device: torch.device | str = "cpu") -> bytes:
-    """Host helper: decode a single stream on ``device``."""
+                 device: torch.device | str = "cuda") -> bytes:
+    """Host helper: decode a single stream on ``device`` (the CUDA card
+    unless the caller names another)."""
     buf = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(device)
     n = torch.tensor(len(data), dtype=torch.int32, device=buf.device)
     out, out_len, _ = decode_block(buf, n, out_cap=out_cap,

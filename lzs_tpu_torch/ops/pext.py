@@ -1,15 +1,19 @@
-"""Row scans over int32 (B, N): prefix max, suffix min and prefix sum.
+"""Row scans over int32 (B, N): prefix max, suffix min, prefix sum and a
+mask's exclusive count, and the match extension's two fused scans.
 
-Port of three ``lzs_tpu.ops.pext`` roll-scan kernels: ``cummax_rows``
-(K8, ``_cummax_kernel``), ``rcummin_rows`` (K7, ``_rcummin_kernel``) and
-``cumsum_rows_wide`` (K9, ``_cumsum_kernel``). On a CUDA tensor they
-launch ``csrc/rowscan.cu``; on a CPU tensor they run the plain version
-beside them.
+Port of six ``lzs_tpu.ops.pext`` roll-scan kernels: ``cummax_rows``
+(K8, ``_cummax_kernel``), ``rcummin_rows`` (K7, ``_rcummin_kernel``),
+``cumsum_rows_wide`` (K9, ``_cumsum_kernel``) and ``rank_mask`` (K6,
+``_rank_kernel``) launch ``csrc/rowscan.cu`` on a CUDA tensor;
+``ext_breaks`` (K4, ``_break_kernel``) and ``ext_fold`` (K5,
+``_fold_kernel``) launch ``csrc/extend.cu``. On a CPU tensor each runs
+the plain version beside it.
 
 Callers: the emission-unit ownership scans (tokenize), the run-end
-pinning of the match extension (sortmatch), the record fill (decode2,
-bitpar), and the raw decoder's output offsets and extension chains
-(bitpar).
+pinning of the match extension and its probe tier (sortmatch:
+ext_breaks, ext_fold, rank_mask, rcummin_rows), the record fill
+(decode2, bitpar), and the raw decoder's output offsets and extension
+chains (bitpar).
 """
 
 from __future__ import annotations
@@ -17,6 +21,15 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+
+_BIG = 0x3FFFFFFF
+MAX_NPOS = 1 << 15        # the match search packs positions into 15 bits
+
+
+def check_npos(npos: int) -> None:
+    """Reject rows wider than the match search's packed positions."""
+    if npos > MAX_NPOS:
+        raise ValueError(f"rows of {npos} positions: at most {MAX_NPOS}")
 
 
 def cummax_rows_plain(v: torch.Tensor) -> torch.Tensor:
@@ -32,29 +45,23 @@ def cumsum_rows_plain(v: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(v, dim=1, dtype=torch.int32)
 
 
-def _launch(kernel: _kernels.Kernel, v: torch.Tensor) -> torch.Tensor:
-    _kernels.check(v, "v", torch.int32)
-    if v.dim() != 2:
-        raise ValueError(f"v: expected (B, N), got {tuple(v.shape)}")
-    out = torch.empty_like(v)
-    b, n = v.shape
-    if b and n:
-        kernel.launch(v.device, v.data_ptr(), out.data_ptr(), b, n)
-    return out
+def rank_mask_plain(mask: torch.Tensor) -> torch.Tensor:
+    m = mask.to(torch.int32)
+    return torch.cumsum(m, dim=1, dtype=torch.int32) - m
 
 
 def cummax_rows(v: torch.Tensor) -> torch.Tensor:
     """Row-wise prefix cumulative max of int32[B, N]."""
     if _kernels.on_cpu(v):
         return cummax_rows_plain(v)
-    return _launch(_kernels.CUMMAX, v)
+    return _kernels.launch_rows(_kernels.CUMMAX, {"v": v})
 
 
 def rcummin_rows(v: torch.Tensor) -> torch.Tensor:
     """Row-wise suffix cumulative min of int32[B, N]."""
     if _kernels.on_cpu(v):
         return rcummin_rows_plain(v)
-    return _launch(_kernels.RCUMMIN, v)
+    return _kernels.launch_rows(_kernels.RCUMMIN, {"v": v})
 
 
 def cumsum_rows_wide(v: torch.Tensor, tile: int = 8192) -> torch.Tensor:
@@ -68,4 +75,81 @@ def cumsum_rows_wide(v: torch.Tensor, tile: int = 8192) -> torch.Tensor:
     del tile
     if _kernels.on_cpu(v):
         return cumsum_rows_plain(v)
-    return _launch(_kernels.CUMSUM, v)
+    return _kernels.launch_rows(_kernels.CUMSUM, {"v": v})
+
+
+def rank_mask(mask: torch.Tensor) -> torch.Tensor:
+    """int32[B, N] exclusive running count of the set entries of a
+    bool[B, N] mask, per row (the probe tier's compaction rank)."""
+    if _kernels.on_cpu(mask):
+        return rank_mask_plain(mask)
+    return _kernels.launch_rows(_kernels.RANK_MASK, {"mask": mask},
+                                dtype=torch.bool)
+
+
+def ext_breaks_plain(score: torch.Tensor, off: torch.Tensor, n: torch.Tensor,
+                     cap: int) -> torch.Tensor:
+    npos = score.shape[1]
+    i = torch.arange(npos, dtype=torch.int32, device=score.device)
+    nq = n[:, None]
+    capped = (score >= cap) & (i + cap < nq)
+    prev_c = torch.cat([torch.zeros_like(capped[:, :1]), capped[:, :-1]], 1)
+    prev_o = torch.cat([torch.zeros_like(off[:, :1]), off[:, :-1]], 1)
+    head = capped & (~prev_c | (off != prev_o))
+    brk = head | ~capped
+    is_cap = (score >= cap).to(torch.int32)
+    binfo = torch.where(brk, (i << 13) | (is_cap << 12) | off.clamp(0, 0x7FF),
+                        _BIG)
+    rcm = rcummin_rows_plain(binfo)                  # next break >= j
+    nxt1 = torch.cat([rcm[:, 1:], torch.full_like(rcm[:, :1], _BIG)], 1)
+    has_brk = nxt1 < _BIG
+    e = torch.where(has_brk, nxt1 >> 13, npos)
+    steal = has_brk & (((nxt1 >> 12) & 1) == 1) & ((nxt1 & 0x7FF) < off)
+    # a break at e + cap == n says nothing about runlen(e, d): probe
+    need_probe = head & ((e + cap >= nq) | steal)
+    ext_res = e - i - 1
+    return ((ext_res << 3) | (head.to(torch.int32) << 2)
+            | (capped.to(torch.int32) << 1) | need_probe.to(torch.int32))
+
+
+def ext_breaks(score: torch.Tensor, off: torch.Tensor, n: torch.Tensor,
+               cap: int) -> torch.Tensor:
+    """Packed ``ext_res << 3 | head << 2 | capped << 1 | need_probe`` of
+    int32[B, N] greedy (score, off) and int32[B] block lengths, N <= 32768.
+
+    A head starts a maximal run of capped positions (score >= cap, i + cap
+    < n) with one offset; ext_res = e - i - 1 for the next break e after
+    i (a head or an uncapped position), which pins a head's extension
+    unless the run meets the data end or a nearer capped offset steals it
+    (need_probe; ``lzs_tpu.ops.sortmatch._extend`` has the argument).
+    """
+    check_npos(score.shape[-1])
+    if _kernels.on_cpu(score, off, n):
+        return ext_breaks_plain(score, off, n, cap)
+    return _kernels.launch_rows(_kernels.EXT_BREAKS,
+                                {"score": score, "off": off, "n": n}, cap)
+
+
+def ext_fold_plain(packed: torch.Tensor, ext_h: torch.Tensor,
+                   score: torch.Tensor, cap: int) -> torch.Tensor:
+    i = torch.arange(packed.shape[1], dtype=torch.int32,
+                     device=packed.device)
+    head = ((packed >> 2) & 1) != 0
+    capped = ((packed >> 1) & 1) != 0
+    pk = cummax_rows_plain(torch.where(
+        head, (i << 16) | (cap + ext_h).clamp(max=0xFFFF), -1))
+    return torch.where(capped, (pk & 0xFFFF) - (i - (pk >> 16)), score)
+
+
+def ext_fold(packed: torch.Tensor, ext_h: torch.Tensor, score: torch.Tensor,
+             cap: int) -> torch.Tensor:
+    """Full run lengths int32[B, N]: at a capped position the extension
+    ``cap + ext_h`` of its run's head less the distance to the head
+    (a run loses one byte per position), ``score`` elsewhere. ``packed``
+    is ext_breaks' output; ext_h int32[B, N] is read at heads."""
+    check_npos(packed.shape[-1])
+    if _kernels.on_cpu(packed, ext_h, score):
+        return ext_fold_plain(packed, ext_h, score, cap)
+    return _kernels.launch_rows(
+        _kernels.EXT_FOLD, {"packed": packed, "ext_h": ext_h, "score": score},
+        cap)

@@ -1,8 +1,12 @@
 """Sort-based LZS match search, batched over blocks.
 
-Port of ``lzs_tpu.ops.sortmatch`` in the form the JAX package runs off a
-TPU: ``candidates`` vmapped over blocks and ``_extend`` vmapped over
-blocks (no Pallas on that path). Per position i of each block:
+Port of ``lzs_tpu.ops.sortmatch`` in the form the JAX package runs on its
+accelerator: ``candidates_batch`` runs the per-k glue of ``pcand`` (K1, a
+row sort, K2+K3) and ``_extend_batch`` the extension scans of ``pext``
+(K4, the probe tier, K5); the probe tier compacts its lanes into waves
+and runs on ``pgather.gather_big`` (K10), ``pext.rcummin_rows`` (K7) and
+``pext.rank_mask`` (K6). Each kernel stage launches a CUDA kernel on a
+CUDA tensor. Per position i of each block:
 
   score[i] = max k in [2, cap] such that the k-gram at i occurs at some
              j in [i - window, i - 1]             (capped greedy score)
@@ -16,11 +20,11 @@ derivation of every step. What differs here:
   * The 12-byte gram sort is a chain of stable one-key sorts from the
     last key to the first (torch.sort takes one key). Gram words are
     uint32 values held in int64, since torch has no uint32 sort.
-  * The per-k position-restoring sort becomes a store by position: the
-    seg-sorted keys carry a permutation of the positions.
-  * The probe tier compares growing spans of every active lane of every
-    block at once (``torch.nonzero`` compaction) instead of MXU gathers
-    and per-offset diagonal columns; the run it measures is the same.
+  * The per-k position-restoring sort becomes a store by position inside
+    ``pcand.perk_back_acc``: the seg-sorted keys carry a permutation of
+    the positions.
+  * The probe's gram words and byte-aligned spans are uint32 values held
+    in int64 (the gathered words themselves are int32 bit patterns).
 """
 
 from __future__ import annotations
@@ -28,10 +32,11 @@ from __future__ import annotations
 import torch
 
 from .. import spec, trace
-from . import pext
+from . import pcand, pext, pgather
 
 _BIG = 0x3FFFFFFF
-_PROBE_SPAN = 64      # first compare span of the probe tier, in bytes
+_PROBE_CAP = 1024     # compacted probe lanes per row and wave
+_T1_WORDS = 12        # tier-1 compare span: 12 words = 48 bytes
 
 
 def clz32(z: torch.Tensor) -> torch.Tensor:
@@ -89,117 +94,125 @@ def candidates_batch(x: torch.Tensor, n: torch.Tensor, *,
     Returns (score, off): int32[B, N] each (off = 0 where no match).
     """
     b, npos = x.shape
-    if npos > 1 << 15:
-        raise ValueError("match search supports blocks up to 32768")
+    pext.check_npos(npos)
     if not spec.MIN_MATCH <= cap <= 16:
         raise ValueError(f"cap {cap} outside [{spec.MIN_MATCH}, 16]")
-    dev = x.device
     nwords = -(-cap // 4)
     words = _gram_words(x.to(torch.int64), nwords)
 
     # lexicographic order of (word 0, ..., word nwords-1, position)
-    perm = torch.arange(npos, device=dev).expand(b, npos)
+    perm = torch.arange(npos, device=x.device).expand(b, npos)
     for col in reversed(words):
         order = torch.sort(col.gather(1, perm), dim=1, stable=True).indices
         perm = perm.gather(1, order)
     plcp = _rank_lcp_rows([col.gather(1, perm) for col in words], cap)
     p = perm.to(torch.int32)
 
-    i = torch.arange(npos, dtype=torch.int32, device=dev).expand(b, npos)
-    nq = n[:, None]
-    score = torch.zeros((b, npos), dtype=torch.int32, device=dev)
-    off = torch.zeros_like(score)
-    first = torch.full((b, 1), -1, dtype=torch.int32, device=dev)
-    for k in range(spec.MIN_MATCH, cap + 1):
-        seg = pext.cummax_rows(torch.where(plcp < k, i, 0))
-        skey = torch.sort((seg << 15) | p, dim=1).values
-        prev = torch.cat([first, skey[:, :-1]], dim=1)
-        mypos = skey & 0x7FFF
-        prevpos = prev & 0x7FFF
-        same = (skey >> 15) == (prev >> 15)
-        cand = torch.where(same & (mypos - prevpos <= window), prevpos, -1)
-        cand_k = torch.empty_like(cand).scatter_(1, mypos.long(), cand)
-        hit = (cand_k >= 0) & (i + k <= nq)
-        score = torch.where(hit, k, score)
-        off = torch.where(hit, i - cand_k, off)
-    return score, off
+    return pcand.perk_candidates(plcp, p, n, kmin=spec.MIN_MATCH, kmax=cap,
+                                 window=window)
 
 
-def _probe_batch(x: torch.Tensor, n: torch.Tensor, base: torch.Tensor,
-                 doff: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+def _aligned(w: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """(B, P, nt) gathered big-endian words and byte positions a (B, P) ->
+    (B, P, nt - 1) words of x[a ..] aligned to the byte, as uint32 values
+    held in int64."""
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    sh = ((a & 3) * 8).to(torch.int64)[:, :, None]
+    return ((w[:, :, :-1] << sh) | (w[:, :, 1:] >> (32 - sh))) & 0xFFFFFFFF
+
+
+def _probe_batch(x: torch.Tensor, n: torch.Tensor, doff: torch.Tensor,
+                 active: torch.Tensor, cap: int) -> torch.Tensor:
     """Exact run extension at the active positions of every block.
 
     For active (b, i): the length of the maximal run of
-    x[b, a + t] == x[b, a + t - d] (t >= 0, a + t < n[b]) with a =
-    base[b, i], d = max(doff[b, i], 1). Lanes of all blocks are compacted
-    together; each round compares the next span of every lane still
-    running, and the span doubles per round (long periodic runs close in
-    log rounds). Returns int32[B, N], 0 at inactive positions.
+    x[b, a + t] == x[b, a + t - d] (t >= 0, a + t < n[b]) with a = i + cap
+    and d = max(doff[b, i], 1). In waves of up to _PROBE_CAP lanes per
+    row, compacted by one row sort: tier 1 compares 48-byte spans fetched
+    with ``pgather.gather_big``; runs past the span close in tier 2, one
+    batch-wide offset per round, with a diagonal-run column (K7
+    ``rcummin_rows``); results return to their positions by probe rank
+    (K6 ``rank_mask``). Returns int32[B, N], 0 at inactive positions.
     """
     b, npos = x.shape
-    length = torch.zeros((b, npos), dtype=torch.int32, device=x.device)
-    rows, cols = torch.nonzero(active, as_tuple=True)
-    if rows.numel() == 0:
-        return length
-    flat = x.reshape(-1)
-    a = base[rows, cols].long()
-    d = doff[rows, cols].clamp(min=1).long()
-    lim = n[rows].long()
-    row0 = rows * npos
-    run = torch.zeros_like(a)
-    lanes = torch.arange(a.numel(), device=x.device)
-    start, span = 0, _PROBE_SPAN
-    while lanes.numel():
-        pa = a[lanes, None] + (start + torch.arange(span, device=x.device))
-        inside = pa < lim[lanes, None]
-        r0 = row0[lanes, None]
-        xa = flat[r0 + pa.clamp(max=npos - 1)]
-        xb = flat[r0 + (pa - d[lanes, None]).clamp(0, npos - 1)]
-        stop = ~((xa == xb) & inside)
-        ended = stop.any(dim=1)
-        run[lanes] += torch.where(ended, stop.to(torch.uint8).argmax(dim=1),
-                                  span)
-        lanes = lanes[~ended]
-        start += span
-        span *= 2
-    length[rows, cols] = run.to(torch.int32)
+    dev = x.device
+    p = min(_PROBE_CAP, npos)
+    nwords = (npos // 4 + _T1_WORDS + 2 + 127) & ~127
+    xe = torch.cat([x, x.new_zeros((b, nwords * 4 - npos))], 1).reshape(
+        b, nwords, 4).to(torch.int64)
+    w64 = (xe[..., 0] << 24) | (xe[..., 1] << 16) | (xe[..., 2] << 8) \
+        | xe[..., 3]
+    words = (w64 - ((w64 >> 31) << 32)).to(torch.int32)  # uint32 bits
+    i = torch.arange(npos, dtype=torch.int32, device=dev).expand(b, npos)
+    nq = n[:, None]
+    nt = _T1_WORDS + 1
+    tt = torch.arange(nt, dtype=torch.int32, device=dev)
+
+    remaining = active
+    length = torch.zeros((b, npos), dtype=torch.int32, device=dev)
+    while bool(remaining.any()):
+        packed = torch.where(remaining, (i << 11) | doff.clamp(max=0x7FF),
+                             _BIG)
+        srt = torch.sort(packed, dim=1).values[:, :p]
+        lanes = srt < _BIG
+        cdoff = (srt & 0x7FF).clamp(min=1)
+        cbase = torch.where(lanes, srt >> 11, 0) + cap
+        a = cbase.clamp(0, npos - 1)
+        bpos = a - torch.minimum(cdoff, a)
+
+        # tier 1: one fetch of both sides' spans (2 * nt words per lane)
+        idx = torch.cat([(a[:, :, None] >> 2) + tt,
+                         (bpos[:, :, None] >> 2) + tt], 2).reshape(b, -1)
+        got = pgather.gather_big(words, idx).reshape(b, p, 2 * nt)
+        lew = clz32(_aligned(got[:, :, :nt], a)
+                    ^ _aligned(got[:, :, nt:], bpos)) >> 3
+        # equal bytes: 4 per leading equal word, then the leading equal
+        # bytes of the first word that differs (JAX sums lew under a
+        # cummin mask; an argmax finds the same word without a scan)
+        part = lew != 4
+        f = torch.where(part.any(2), part.to(torch.uint8).argmax(2),
+                        _T1_WORDS)
+        last = lew.gather(2, f.clamp(max=_T1_WORDS - 1)[:, :, None])[:, :, 0]
+        ext = (4 * f + torch.where(f < _T1_WORDS, last, 0)).to(torch.int32)
+        full_span = ext >= 4 * _T1_WORDS
+        ext = torch.minimum(ext, (nq - cbase).clamp(min=0))
+        cln = torch.where(lanes, ext, 0)
+        act = lanes & full_span & (cbase + ext < nq)
+
+        # tier 2: close long runs, one batch-wide offset per round
+        while True:
+            d0 = int(torch.where(act, cdoff, _BIG).min())
+            if d0 == _BIG:
+                break
+            eq = (x == torch.roll(x, d0, 1)) & (i >= d0) & (i < nq)
+            rm = pext.rcummin_rows(torch.where(eq, _BIG, i))
+            col = (torch.minimum(rm, nq) - i).clamp(min=0)
+            vals = pgather.gather_big(col, a)
+            mine = act & (cdoff == d0)
+            cln = torch.where(mine, vals, cln)
+            act = act & ~mine
+
+        # deliver by probe rank: the wave took each row's first p active
+        # positions in index order, so the r-th of them reads lane r
+        rank = pext.rank_mask(remaining)
+        vals = pgather.gather_big(cln, rank.clamp(0, p - 1))
+        take = remaining & (rank < p)
+        length = torch.where(take, vals, length)
+        remaining = remaining & ~take
     return length
 
 
-def _extend(x: torch.Tensor, n: torch.Tensor, score: torch.Tensor,
-            off: torch.Tensor, cap: int) -> torch.Tensor:
+def _extend_batch(x: torch.Tensor, n: torch.Tensor, score: torch.Tensor,
+                  off: torch.Tensor, cap: int) -> torch.Tensor:
     """Uncapped run length at the chosen offset for capped positions
-    (batched ``lzs_tpu.ops.sortmatch._extend``; see there for the run-end
-    argument that pins most capped heads without a probe)."""
-    b, npos = x.shape
-    dev = x.device
-    i = torch.arange(npos, dtype=torch.int32, device=dev).expand(b, npos)
-    nq = n[:, None]
-    capped = (score >= cap) & (i + cap < nq)
-    prev_c = torch.cat([torch.zeros_like(capped[:, :1]), capped[:, :-1]], 1)
-    prev_o = torch.cat([torch.zeros_like(off[:, :1]), off[:, :-1]], 1)
-    head = capped & (~prev_c | (off != prev_o))
-
-    brk = head | ~capped
-    is_cap_score = (score >= cap).to(torch.int32)
-    binfo = torch.where(brk, (i << 13) | (is_cap_score << 12)
-                        | off.clamp(0, 0x7FF), _BIG)
-    rcm = pext.rcummin_rows(binfo)                     # next break >= j
-    nxt1 = torch.cat([rcm[:, 1:], torch.full_like(rcm[:, :1], _BIG)], 1)
-    has_brk = nxt1 < _BIG
-    e = torch.where(has_brk, nxt1 >> 13, npos)
-    steal = has_brk & (((nxt1 >> 12) & 1) == 1) & ((nxt1 & 0x7FF) < off)
-    # a break at e + cap == n says nothing about runlen(e, d): probe
-    need_probe = head & ((e + cap >= nq) | steal)
-    ext_res = e - i - 1
-    ext_p = _probe_batch(x, n, i + cap, off, need_probe)
+    (``lzs_tpu.ops.sortmatch._extend_batch``; see ``_extend`` there for the
+    run-end argument that pins most capped heads without a probe)."""
+    packed = pext.ext_breaks(score, off, n, cap)
+    need_probe = (packed & 1) != 0
+    ext_res = packed >> 3
+    ext_p = _probe_batch(x, n, off, need_probe, cap)
     ext_h = torch.where(need_probe, ext_p, ext_res)
-
-    pk = pext.cummax_rows(torch.where(
-        head, (i << 16) | (cap + ext_h).clamp(max=0xFFFF), -1))
-    hfull = pk & 0xFFFF
-    hpos = pk >> 16
-    return torch.where(capped, hfull - (i - hpos), score)
+    return pext.ext_fold(packed, ext_h, score, cap)
 
 
 def best_matches_batch(x: torch.Tensor, n: torch.Tensor, *,
@@ -210,5 +223,5 @@ def best_matches_batch(x: torch.Tensor, n: torch.Tensor, *,
     with trace.stage("candidates"):
         score, off = candidates_batch(x, n, window=window, cap=cap)
     with trace.stage("extend"):
-        full = _extend(x, n, score, off, cap)
+        full = _extend_batch(x, n, score, off, cap)
     return score, off, full

@@ -18,6 +18,8 @@ and its kernels are not counted twice. It prints, per call:
                 RAW_STAGES for the raw decode) that was open on the host
                 when it was launched; "other" is the rest
   top           the device activities with the most summed time
+  port_kernels  each of the port's own CUDA kernels (lzs_tpu_torch/csrc):
+                launches, summed device ms and device ms per launch
 
 Run from the root of a checkout, on a machine with one CUDA device:
 
@@ -34,6 +36,7 @@ import collections
 import hashlib
 import json
 import pathlib
+import re
 import statistics
 import sys
 import time
@@ -49,6 +52,10 @@ from lzs_tpu_torch.blocks import pad_blocks  # noqa: E402
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+#: the __global__ functions of lzs_tpu_torch/csrc (each opens a line)
+_PORT_KERNELS = frozenset(
+    name for src in (ROOT / "lzs_tpu_torch" / "csrc").glob("*.cu")
+    for name in re.findall(r"^(\w+_kernel)\(", src.read_text(), re.M))
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -88,10 +95,16 @@ def device_summary(events: list[dict]) -> dict:
 
     by_stage = collections.defaultdict(list)
     by_name = collections.Counter()
+    port = collections.defaultdict(lambda: [0, 0.0])
     for ev in device:
         iv = (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
         by_stage[stage_of(ev)].append(iv)
         by_name[ev["name"][:60]] += float(ev["dur"])
+        name = re.sub(r"^(void )?\(anonymous namespace\)::", "",
+                      ev["name"]).split("(")[0]
+        if name.split("<")[0] in _PORT_KERNELS:
+            port[name][0] += 1
+            port[name][1] += float(ev["dur"])
     all_iv = [iv for ivs in by_stage.values() for iv in ivs]
     return {
         "busy_ms": _union_us(all_iv) / 1e3,
@@ -100,6 +113,9 @@ def device_summary(events: list[dict]) -> dict:
                    for k, v in sorted(by_stage.items())},
         "top": [[name, round(us / 1e3, 4)]
                 for name, us in by_name.most_common(8)],
+        "port_kernels": {k: {"launches": c, "ms": round(us / 1e3, 4),
+                             "ms_per_launch": round(us / 1e3 / c, 4)}
+                         for k, (c, us) in sorted(port.items())},
     }
 
 

@@ -23,6 +23,7 @@ from lzs_tpu import reference as ref
 from lzs_tpu.blocks import BlockCodec as JaxCodec
 from lzs_tpu_torch import convert
 from lzs_tpu_torch.blocks import FLAG_LAZY, BlockCodec, pad_blocks
+from lzs_tpu_torch.ops import decode
 
 from golden import GOLDEN_COMPRESSED, GOLDEN_PLAINTEXT
 
@@ -47,8 +48,8 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def codecs():
-    return {p: (BlockCodec(block=BLOCK, policy=p), JaxCodec(block=BLOCK,
-                                                             policy=p))
+    return {p: (BlockCodec(block=BLOCK, policy=p, device="cpu"),
+                JaxCodec(block=BLOCK, policy=p))
             for p in ("greedy", "lazy")}
 
 
@@ -138,7 +139,7 @@ def test_raw_payload_matches_reference(codecs, name):
 
 
 def test_golden_vector_single_block():
-    port = BlockCodec(block=1024)
+    port = BlockCodec(block=1024, device="cpu")
     assert port.compress(GOLDEN_PLAINTEXT, container=False) \
         == GOLDEN_COMPRESSED
 
@@ -186,6 +187,21 @@ def test_container_corruption_is_flagged(codecs):
         assert out == data, f"silent corruption at byte {pos}"
 
 
+def test_default_device_is_the_card(codecs):
+    """The entry points run on the card unless asked for the CPU; with no
+    card the default codec raises at its first use (no automatic choice)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists: the default codec would run")
+    codec = BlockCodec(block=1024)
+    assert codec.device == torch.device("cuda")
+    with pytest.raises((AssertionError, RuntimeError)):
+        codec.compress(b"x")
+    _, jax_codec = codecs["greedy"]
+    assert convert.codec_from_jax(jax_codec).device == torch.device("cuda")
+    with pytest.raises((AssertionError, RuntimeError)):
+        decode.decode_bytes(GOLDEN_COMPRESSED, 1024)
+
+
 def test_container_wrong_magic_version_and_codec(codecs):
     port, _ = codecs["greedy"]
     blob = port.compress(mixed_corpus(3000, seed=14))
@@ -194,6 +210,6 @@ def test_container_wrong_magic_version_and_codec(codecs):
         with pytest.raises(ValueError):
             port.decompress(bad)
     with pytest.raises(ValueError):
-        BlockCodec(block=4096).decompress(blob)
+        BlockCodec(block=4096, device="cpu").decompress(blob)
     with pytest.raises(ValueError):
-        BlockCodec(policy="fast")
+        BlockCodec(policy="fast", device="cpu")

@@ -5,8 +5,10 @@ long periodic runs to the data end, random bytes) go through the JAX
 package's off-TPU path (vmapped ``candidates`` and ``_extend``, the XLA
 token walk, ``emission_units_batch`` with its pext kernels in interpret
 mode) and the port's batched torch stages on CPU tensors; every output
-must be equal (tolerance 0). The encoded bytes are also held to the
-NumPy reference model.
+must be equal (tolerance 0). The port's search is also held to the form
+JAX runs on its accelerator (``candidates_batch(pallas_glue=True)`` and
+``_extend_batch``, Pallas in interpret mode). The encoded bytes are also
+held to the NumPy reference model.
 """
 
 import numpy as np
@@ -20,6 +22,8 @@ from lzs_tpu import reference
 from lzs_tpu.ops import sortmatch as jsm
 from lzs_tpu.ops import tokenize as jtok
 from lzs_tpu_torch.ops import encode, sortmatch, tokenize
+
+from test_torch_pcand import mixed_blocks
 
 NPOS = 2048
 
@@ -65,22 +69,75 @@ def test_best_matches_batch_matches_jax(blocks):
     assert full.max() > 64 + 12
 
 
+def test_best_matches_batch_matches_jax_accelerator_form():
+    x, n = mixed_blocks(87, 3, 4096)
+    xj, nj = jnp.asarray(x), jnp.asarray(n)
+    score, off = jax.jit(lambda a, m: jsm.candidates_batch(
+        a, m, pallas_glue=True))(xj, nj)
+    full = jax.jit(lambda: jsm._extend_batch(xj, nj, score, off, 12))()
+    got = sortmatch.best_matches_batch(_t(x), _t(n))
+    for g, w in zip(got, (score, off, full), strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[2].numpy().max() > 64 + 12
+
+
+def _direct_runs(x, n, doff, active, cap):
+    """Run length at a = i + cap for every active position, byte by byte."""
+    want = np.zeros(x.shape, np.int64)
+    for b, i in zip(*np.nonzero(active)):
+        a, d, run = i + cap, max(int(doff[b, i]), 1), 0
+        while a + run < n[b] and x[b, a + run] == x[b, a + run - d]:
+            run += 1
+        want[b, i] = run
+    return want
+
+
 def test_probe_matches_direct_runs():
     rng = np.random.default_rng(4)
     x = rng.integers(0, 3, (3, 500)).astype(np.int32)
     x[1, 100:400] = 7
     n = np.array([500, 450, 300], np.int32)
     active = rng.random((3, 500)) < 0.2
-    base = np.minimum(np.arange(500) + 12, 499)[None].repeat(3, 0)
-    doff = rng.integers(1, 12, (3, 500))
-    got = sortmatch._probe_batch(_t(x), _t(n), _t(base.astype(np.int32)),
-                                 _t(doff.astype(np.int32)), _t(active))
-    for b, i in zip(*np.nonzero(active)):
-        a, d, run = base[b, i], doff[b, i], 0
-        while a + run < n[b] and x[b, a + run] == x[b, a + run - d]:
-            run += 1
-        assert int(got[b, i]) == run, (b, i)
-    assert not got.numpy()[~active].any()
+    doff = rng.integers(1, 12, (3, 500)).astype(np.int32)
+    got = sortmatch._probe_batch(_t(x), _t(n), _t(doff), _t(active), 12)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _direct_runs(x, n, doff, active, 12))
+    assert got.numpy().max() > 4 * 12                 # tier 2 ran
+
+
+def test_probe_waves_match_direct_runs():
+    """More active positions in a row than one wave's lanes: the rows
+    take three waves, each delivered by probe rank."""
+    rng = np.random.default_rng(6)
+    npos = 2600
+    x = rng.integers(0, 2, (2, npos)).astype(np.int32)
+    x[0, 1000:1900] = 5
+    n = np.array([npos, npos - 77], np.int32)
+    active = rng.random((2, npos)) < 0.9
+    # an offset reaches back at most to the block start, as off <= i does
+    doff = np.minimum(rng.integers(1, 300, (2, npos)),
+                      np.arange(npos) + 1).astype(np.int32)
+    assert active.sum(1).max() > 2 * 1024
+    got = sortmatch._probe_batch(_t(x), _t(n), _t(doff), _t(active), 12)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _direct_runs(x, n, doff, active, 12))
+
+
+@pytest.mark.parametrize("b", [3, 8])
+def test_probe_matches_jax_probe_batch(b):
+    """The port's wave-form probe against JAX's (gather_big, rank_mask
+    and rcummin_rows in interpret mode) on the need_probe heads of the
+    mixed blocks."""
+    x, n = mixed_blocks(41 + b, b, 512)
+    xj, nj = jnp.asarray(x), jnp.asarray(n)
+    score, off = jax.jit(jax.vmap(lambda a, m: jsm.candidates(a, m)))(xj, nj)
+    from lzs_tpu.ops import pext as jpext
+    need = (np.asarray(jpext.ext_breaks(score, off, nj, 12)) & 1) != 0
+    assert need.any()
+    want = jax.jit(lambda: jsm._probe_batch(xj, nj, off, jnp.asarray(need),
+                                            12))()
+    got = sortmatch._probe_batch(_t(x), _t(n), _t(off), _t(need), 12)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_emission_units_and_walk_match_jax(blocks):

@@ -8,11 +8,13 @@ GPU machine has none), so run them there without the JAX test fixtures:
 Edge shapes the main path does not reach (one element, widths that are
 not a multiple of the CTA or of a walk tile, 70000-wide rows, empty and
 one-position walks, a huge step, hand-made records that set every status
-bit, output rows past the shared-memory limit) are compared bitwise with
-the plain versions on the same CUDA tensors, as are the bench shapes of
-the raw decoder (303104-position walks, 33792-wide cumsums); the codec's
-bytes and the raw decoder's output on the card are compared with the
-CPU's.
+bit, output rows past the shared-memory limit, a capped run head at a
+row's last position) are compared bitwise with the plain versions on the
+same CUDA tensors, as are the bench shapes of the raw decoder
+(303104-position walks, 33792-wide cumsums) and of the match search
+(256 x 32768, and the probe tier's gathers at 256 x 8320 words); the
+codec's bytes, the probe's run lengths and the raw decoder's output on
+the card are compared with the CPU's.
 """
 
 import numpy as np
@@ -20,8 +22,8 @@ import pytest
 import torch
 
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
-from lzs_tpu_torch.ops import (_kernels, decode, encode, pexpand, pext, ppack,
-                               psync, pwalk)
+from lzs_tpu_torch.ops import (_kernels, decode, encode, pcand, pexpand, pext,
+                               pgather, ppack, psync, pwalk, sortmatch)
 
 pytestmark = pytest.mark.gpu
 
@@ -69,6 +71,116 @@ def test_cumsum_kernel(cuda, b, w):
     _equal([got], [pext.cumsum_rows_plain(v)])
     assert got.dtype == torch.int32
     assert _kernels.CUMSUM.launches == before + 1
+
+
+def _rank_inputs(seed, b, w, dev):
+    """Rank LCPs in [0, 12], sorted positions that permute each row, and
+    block lengths below the row width in every other row."""
+    rng = np.random.default_rng(seed)
+    plcp = rng.integers(0, 13, (b, w))
+    p = rng.permuted(np.tile(np.arange(w), (b, 1)), axis=1)
+    n = np.full(b, w)
+    n[1::2] = rng.integers(1, w, len(n[1::2]))
+    return [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (plcp, p, n)]
+
+
+@pytest.mark.parametrize("window", [64, 2047])
+@pytest.mark.parametrize("k", [2, 12])
+@pytest.mark.parametrize("b,w", [(33, 1000), (5, 1025), (256, 32768)])
+def test_perk_kernels(cuda, b, w, k, window):
+    plcp, p, n = _rank_inputs(b * w + k, b, w, cuda)
+    before = _kernels.PERK_KEYS.launches, _kernels.PERK_BACK_ACC.launches
+    keys = pcand.perk_keys(plcp, p, k)
+    _equal([keys], [pcand.perk_keys_plain(plcp, p, k)])
+    skey = torch.sort(keys, dim=1).values
+    # a running best of lower levels, -1 where none matched
+    lower = torch.randint(2, k + 1, (b, w), dtype=torch.int32, device=cuda)
+    pk = torch.where(plcp > 6, (lower << 16) | (32768 - plcp - 1), -1)
+    pk0 = pk.clone()
+    got = pcand.perk_back_acc(skey, n, pk, k, window)
+    _equal([got], [pcand.perk_back_acc_plain(skey, n, pk, k, window)])
+    assert torch.equal(pk, pk0)
+    assert ((got >> 16) == k).any()
+    assert (_kernels.PERK_KEYS.launches, _kernels.PERK_BACK_ACC.launches) \
+        == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("b,w", [(33, 1000), (5, 1025), (256, 32768)])
+def test_ext_kernels(cuda, b, w):
+    rng = np.random.default_rng(w)
+    score = rng.integers(0, 13, (b, w))
+    score[rng.random((b, w)) < 0.6] = 12
+    off = rng.integers(1, 4, (b, w))          # few offsets: runs form
+    score[:, -3:] = 12
+    off[:, -3:] = [5, 5, 7]
+    n = rng.integers(5, w + 40, b)
+    n[0] = w + 20             # row 0 ends in a capped head at i = N - 1
+    st, ot, nt = (torch.from_numpy(a.astype(np.int32)).to(cuda)
+                  for a in (score, off, n))
+    before = _kernels.EXT_BREAKS.launches, _kernels.EXT_FOLD.launches
+    packed = pext.ext_breaks(st, ot, nt, 12)
+    _equal([packed], [pext.ext_breaks_plain(st, ot, nt, 12)])
+    assert int(packed[0, -1]) & 0b110 == 0b110
+    assert ((packed & 1) != 0).any()
+    ext_h = torch.from_numpy(rng.integers(0, 5000, (b, w)).astype(
+        np.int32)).to(cuda)
+    _equal([pext.ext_fold(packed, ext_h, st, 12)],
+           [pext.ext_fold_plain(packed, ext_h, st, 12)])
+    assert (_kernels.EXT_BREAKS.launches, _kernels.EXT_FOLD.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("b,w", [(1, 1), (33, 1000), (5, 1025),
+                                 (256, 32768)])
+def test_rank_mask_kernel(cuda, b, w):
+    gen = torch.Generator(device=cuda).manual_seed(w)
+    mask = torch.rand((b, w), generator=gen, device=cuda) < 0.3
+    mask[0] = True
+    before = _kernels.RANK_MASK.launches
+    got = pext.rank_mask(mask)
+    _equal([got], [pext.rank_mask_plain(mask)])
+    assert got.dtype == torch.int32
+    assert _kernels.RANK_MASK.launches == before + 1
+
+
+@pytest.mark.parametrize("b,w,q", [(3, 1, 7), (5, 1000, 333),
+                                   (256, 8320, 26624), (256, 32768, 1024),
+                                   (256, 1024, 32768)])
+def test_gather_kernel(cuda, b, w, q):
+    rng = np.random.default_rng(w + q)
+    tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (b, w),
+                                        dtype=np.int64).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(-3, w + 3, (b, q)).astype(np.int32))
+    tab, idx = tab.to(cuda), idx.to(cuda)
+    before = _kernels.GATHER_BIG.launches
+    _equal([pgather.gather_big(tab, idx)],
+           [pgather.gather_big_plain(tab, idx)])
+    assert _kernels.GATHER_BIG.launches == before + 1
+
+
+def test_probe_on_card_equals_cpu(cuda):
+    """The wave-form probe on the card (gathers, rank, run columns) gives
+    the CPU's run lengths, over two waves in one row."""
+    rng = np.random.default_rng(12)
+    npos = 4096
+    x = rng.integers(0, 2, (8, npos)).astype(np.int32)
+    x[0, 100:3000] = 9
+    x[3, :] = np.tile(rng.integers(0, 256, 700), 6)[:npos]
+    n = np.array([npos] * 4 + [npos - 100] * 4, np.int32)
+    active = rng.random((8, npos)) < 0.4
+    active[1] = True
+    doff = np.minimum(rng.integers(1, 2048, (8, npos)),
+                      np.arange(npos) + 1).astype(np.int32)
+    doff[3] = np.minimum(700, np.arange(npos) + 1)
+    args = [torch.from_numpy(a) for a in (x, n, doff, active)]
+    want = sortmatch._probe_batch(*args, 12)
+    _kernels.reset_launches()
+    got = sortmatch._probe_batch(*(a.to(cuda) for a in args), 12)
+    counts = _kernels.launch_counts()
+    assert torch.equal(got.cpu(), want)
+    assert int(want.max()) > 4 * 12
+    assert counts["rank_mask"] == 4 and counts["gather_big"] > 4
+    assert counts["rowscan_rcummin"] > 0
 
 
 def _host_walk(step, n):
@@ -140,7 +252,7 @@ def test_raw_decode_on_card_equals_cpu(cuda):
     data = (bytes(range(64)) * 30 + b"Q" * 1500
             + rng.integers(0, 256, 1800, dtype=np.uint8).tobytes()
             + b"the quick brown fox " * 120)[:5 * block - 300]
-    cpu = BlockCodec(block=block)
+    cpu = BlockCodec(block=block, device="cpu")
     x, lens = pad_blocks(data, block)
     comp, clen, _, _, _ = cpu.encode_batch(torch.from_numpy(x),
                                            torch.from_numpy(lens))
@@ -158,7 +270,8 @@ def test_raw_decode_on_card_equals_cpu(cuda):
     for multi in (False, True):
         assert (decode.decode_bytes(chain, 1 << 18, multi_stream=multi,
                                     device=cuda)
-                == decode.decode_bytes(chain, 1 << 18, multi_stream=multi))
+                == decode.decode_bytes(chain, 1 << 18, multi_stream=multi,
+                                       device="cpu"))
 
 
 @pytest.mark.parametrize("end_marker", [None, END])
@@ -234,10 +347,15 @@ def test_codec_on_card_equals_cpu(cuda):
             .tobytes() + bytes(range(64)) * 20)
     for policy in ("greedy", "lazy"):
         gpu = BlockCodec(block=2048, policy=policy, device=cuda)
-        walks = _kernels.WALK_DESCENT.launches
-        cpu = BlockCodec(block=2048, policy=policy)
+        cpu = BlockCodec(block=2048, policy=policy, device="cpu")
+        _kernels.reset_launches()
         blob = gpu.compress(data)
-        assert _kernels.WALK_DESCENT.launches == walks + 1
+        counts = _kernels.launch_counts()
+        assert {k: counts[k] for k in ("perk_keys", "perk_back_acc",
+                                       "ext_breaks", "ext_fold",
+                                       "walk_descent")} == {
+            "perk_keys": 11, "perk_back_acc": 11, "ext_breaks": 1,
+            "ext_fold": 1, "walk_descent": 1}
         assert blob == cpu.compress(data)
         assert gpu.decompress(blob) == data
         assert gpu.compress(b"") == cpu.compress(b"")
@@ -264,3 +382,32 @@ def test_wrappers_reject_bad_operands(cuda):
         pwalk.walk_entries(v)
     with pytest.raises(TypeError):
         pext.cumsum_rows_wide(v.to(torch.int64))
+    n = torch.full((4,), 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pcand.perk_keys(v, v[:, :32].contiguous(), 2)
+    with pytest.raises(TypeError):
+        pcand.perk_keys(v.to(torch.int64), v.to(torch.int64), 2)
+    with pytest.raises(ValueError):
+        pcand.perk_back_acc(v, n[:3].contiguous(), v, 2, 64)
+    with pytest.raises(ValueError):
+        pcand.perk_back_acc(v, n, v[:, ::2], 2, 64)
+    with pytest.raises(ValueError):
+        pcand.perk_keys(v, v.cpu(), 2)
+    with pytest.raises(ValueError):
+        pext.ext_breaks(v, v[:, ::2], n, 12)
+    with pytest.raises(TypeError):
+        pext.ext_breaks(v, v, n.to(torch.int64), 12)
+    with pytest.raises(ValueError):
+        pext.ext_fold(v, v[:2].contiguous(), v, 12)
+    with pytest.raises(TypeError):
+        pext.ext_fold(v, v, v.to(torch.int16), 12)
+    with pytest.raises(TypeError):
+        pext.rank_mask(v)
+    with pytest.raises(ValueError):
+        pext.rank_mask((v > 0)[:, ::2])
+    with pytest.raises(TypeError):
+        pgather.gather_big(v, v.to(torch.int64))
+    with pytest.raises(ValueError):
+        pgather.gather_big(v, v[:, ::2])
+    with pytest.raises(ValueError):
+        pgather.gather_big(v, v[:3].contiguous())

@@ -113,8 +113,10 @@ def test_make_decoder_equals_decode_batch(fuzz, multi):
 def test_multi_stream_decode():
     a, b = b"first stream data " * 3, b"second one " * 5
     stream = ref.lzs_compress(a) + ref.lzs_compress(b)
-    assert decode.decode_bytes(stream, 4096, multi_stream=True) == a + b
-    assert decode.decode_bytes(stream, 4096, multi_stream=False) == a
+    assert decode.decode_bytes(stream, 4096, multi_stream=True,
+                               device="cpu") == a + b
+    assert decode.decode_bytes(stream, 4096, multi_stream=False,
+                               device="cpu") == a
 
 
 def test_zero_fill_corrupt_offset():
@@ -125,7 +127,7 @@ def test_zero_fill_corrupt_offset():
     w.put(0b1100, 4)                     # length 5
     w.put(spec.END_MARKER_VALUE, spec.END_MARKER_BITS)
     w.pad_to_byte()
-    assert decode.decode_bytes(w.getvalue(), 4096) == b"\x00" * 5
+    assert decode.decode_bytes(w.getvalue(), 4096, device="cpu") == b"\x00" * 5
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -142,7 +144,7 @@ def test_every_truncation_matches_jax(multi):
 def test_output_capacity_clamp():
     data = b"R" * 300
     stream = ref.lzs_compress(data)
-    assert decode.decode_bytes(stream, 100) == data[:100]
+    assert decode.decode_bytes(stream, 100, device="cpu") == data[:100]
     out, out_len, markers = decode.decode_block(
         torch.from_numpy(np.frombuffer(stream, np.uint8).copy()),
         torch.tensor(len(stream), dtype=torch.int32), out_cap=100)
@@ -153,7 +155,8 @@ def test_output_capacity_clamp():
 def test_long_single_record_copy(period):
     seed = bytes(i % 251 for i in range(period)) if period > 1 else b"Q"
     data = (seed * (8192 // len(seed) + 1))[:8192]
-    assert decode.decode_bytes(ref.lzs_compress(data), 8192) == data
+    assert decode.decode_bytes(ref.lzs_compress(data), 8192,
+                               device="cpu") == data
 
 
 @pytest.mark.parametrize("shape", [(32, 1), (32, 7), (32, 16), (32, 17),
@@ -191,7 +194,8 @@ def test_decode_block_at_max_out_cap_matches_reference():
     assert len(stream) > 180_000
     want = ref.lzs_decompress(stream)
     assert want == data
-    assert decode.decode_bytes(stream, bitpar.MAX_OUT_CAP) == want
+    assert decode.decode_bytes(stream, bitpar.MAX_OUT_CAP,
+                               device="cpu") == want
 
 
 def test_out_cap_over_max_or_scan_engine_is_not_ported():
@@ -211,7 +215,7 @@ def test_block_codec_decode_batch_raw_matches_jax():
     data = (bytes(range(64)) * 30 + b"Q" * 1500
             + rng.integers(0, 256, 1800, dtype=np.uint8).tobytes()
             + b"the quick brown fox " * 120)[:4 * block - 300]
-    codec = BlockCodec(block=block)
+    codec = BlockCodec(block=block, device="cpu")
     x, lens = pad_blocks(data, block)
     comp, clen, _, _, _ = codec.encode_batch(torch.from_numpy(x),
                                              torch.from_numpy(lens))

@@ -2,7 +2,11 @@
 
 The port's scans on CPU tensors (their plain versions) against the JAX
 package's Pallas roll-scan kernels in interpret mode, on the same int32
-inputs made from a seed; exact equality (integers, tolerance 0).
+inputs made from a seed; exact equality (integers, tolerance 0). The
+match extension's fused scans (K4 ``ext_breaks``, K5 ``ext_fold``) read
+(score, off) from JAX's ``candidates`` on the blocks of
+tests/test_torch_pcand.py and ``ext_h`` from the port's probe; the probe
+rank (K6 ``rank_mask``) is held to JAX's on seeded masks.
 """
 
 import dataclasses
@@ -14,12 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from lzs_tpu import spec as jspec
 from lzs_tpu.ops import pext as jpext
+from lzs_tpu.ops import sortmatch as jsm
 from lzs_tpu_torch import spec as tspec
-from lzs_tpu_torch.ops import pext
+from lzs_tpu_torch.ops import pext, sortmatch
+
+from test_torch_pcand import mixed_blocks
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -56,11 +64,84 @@ def test_cumsum_rows_wide_matches_jax_pext(w, tile):
                                                       tile=tile)))
 
 
+def _ext_h(x, n, packed, off, cap=12):
+    """ext_h as the port's _extend_batch builds it: the probe where
+    need_probe is set, ext_res elsewhere."""
+    need = (packed & 1) != 0
+    probe = sortmatch._probe_batch(x, n, off, need, cap)
+    return torch.where(need, probe, packed >> 3)
+
+
+@pytest.mark.parametrize("npos", [512, 1024])
+@pytest.mark.parametrize("b", [3, 8, 32])
+def test_ext_breaks_and_fold_match_jax_pext(b, npos):
+    x, n = mixed_blocks(b * npos, b, npos)
+    xj, nj = jnp.asarray(x), jnp.asarray(n)
+    score, off = jax.jit(jax.vmap(lambda a, m: jsm.candidates(a, m)))(xj, nj)
+    st, ot = torch.from_numpy(np.array(score)), torch.from_numpy(np.array(off))
+    want = np.asarray(jpext.ext_breaks(score, off, nj, 12))
+    packed = pext.ext_breaks(st, ot, torch.from_numpy(n), 12)
+    np.testing.assert_array_equal(packed.numpy(), want)
+    assert ((packed & 1) != 0).any() and ((packed & 4) != 0).any()
+    ext_h = _ext_h(torch.from_numpy(x), torch.from_numpy(n), packed, ot)
+    full = pext.ext_fold(packed, ext_h, st, 12)
+    np.testing.assert_array_equal(
+        full.numpy(), np.asarray(jpext.ext_fold(
+            jnp.asarray(want), jnp.asarray(ext_h.numpy()), score, 12)))
+    assert full.numpy().max() > 12
+
+
+@pytest.mark.parametrize("b", [3, 32])
+def test_ext_breaks_capped_head_at_row_end(b):
+    """n past the row end lets the last position be a capped head: its
+    next break lies past the row (JAX's 0x3FFFFFFF, the kernel's INT_MAX)."""
+    rng = np.random.default_rng(b)
+    npos = 512
+    score = rng.integers(0, 13, (b, npos))
+    score[rng.random((b, npos)) < 0.6] = 12
+    off = rng.integers(1, 4, (b, npos))
+    score[:, -3:] = 12
+    off[:, -3:] = [5, 5, 7]
+    n = rng.integers(5, npos + 40, b)
+    n[0], n[1] = npos + 20, npos + 11
+    score, off, n = (a.astype(np.int32) for a in (score, off, n))
+    want = np.asarray(jpext.ext_breaks(jnp.asarray(score), jnp.asarray(off),
+                                       jnp.asarray(n), 12))
+    packed = pext.ext_breaks(torch.from_numpy(score), torch.from_numpy(off),
+                             torch.from_numpy(n), 12)
+    np.testing.assert_array_equal(packed.numpy(), want)
+    assert int(packed[0, -1]) & 0b110 == 0b110          # capped head at N - 1
+    ext_h = rng.integers(0, 100, (b, npos)).astype(np.int32)
+    np.testing.assert_array_equal(
+        pext.ext_fold(packed, torch.from_numpy(ext_h),
+                      torch.from_numpy(score), 12).numpy(),
+        np.asarray(jpext.ext_fold(jnp.asarray(want), jnp.asarray(ext_h),
+                                  jnp.asarray(score), 12)))
+
+
+@pytest.mark.parametrize("b,w", [(8, 1024), (32, 128), (3, 777)])
+def test_rank_mask_matches_jax_pext(b, w):
+    rng = np.random.default_rng(b + w)
+    mask = rng.random((b, w)) < rng.random((b, 1))
+    mask[0] = True
+    got = pext.rank_mask(torch.from_numpy(mask))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jpext.rank_mask(jnp.asarray(mask))))
+
+
 def test_scan_plain_versions_are_the_cpu_path():
     v = torch.from_numpy(_rows(5, 4, 300))
     assert torch.equal(pext.cummax_rows(v), pext.cummax_rows_plain(v))
     assert torch.equal(pext.rcummin_rows(v), pext.rcummin_rows_plain(v))
     assert torch.equal(pext.cumsum_rows_wide(v), pext.cumsum_rows_plain(v))
+    assert torch.equal(pext.rank_mask(v > 0), pext.rank_mask_plain(v > 0))
+    n = torch.tensor([300, 200, 17, 0], dtype=torch.int32)
+    score = (v & 15).clamp(max=12)
+    packed = pext.ext_breaks(score, v & 7, n, 12)
+    assert torch.equal(packed, pext.ext_breaks_plain(score, v & 7, n, 12))
+    assert torch.equal(pext.ext_fold(packed, v & 63, score, 12),
+                       pext.ext_fold_plain(packed, v & 63, score, 12))
 
 
 def test_scan_rejects_unsupported_device():
@@ -74,7 +155,8 @@ def test_port_imports_no_jax():
             "lzs_tpu_torch.convert\n"
             "import lzs_tpu_torch.ops.encode, lzs_tpu_torch.ops.decode2\n"
             "import lzs_tpu_torch.ops.decode, lzs_tpu_torch.ops.bitpar, "
-            "lzs_tpu_torch.ops.pwalk\n"
+            "lzs_tpu_torch.ops.pwalk, lzs_tpu_torch.ops.pcand, "
+            "lzs_tpu_torch.ops.pgather\n"
             "assert 'jax' not in sys.modules, sorted(sys.modules)\n"
             "assert 'lzs_tpu' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -33,7 +33,7 @@ def _profile_port():
 def test_stage_times_cover_the_pipeline():
     data = np.random.default_rng(3).integers(97, 101, 3000).astype(
         np.uint8).tobytes()
-    codec = BlockCodec(block=1024)
+    codec = BlockCodec(block=1024, device="cpu")
     with trace.stage_times() as times:
         assert codec.decompress(codec.compress(data)) == data
     assert set(times) == set(trace.STAGES)
@@ -46,7 +46,7 @@ def test_stage_times_cover_the_pipeline():
 def test_raw_stage_times_cover_the_raw_decoder():
     data = np.random.default_rng(4).integers(97, 101, 3000).astype(
         np.uint8).tobytes()
-    codec = BlockCodec(block=1024)
+    codec = BlockCodec(block=1024, device="cpu")
     x, lens = pad_blocks(data, 1024)
     comp, clen, _, _, _ = codec.encode_batch(torch.from_numpy(x),
                                              torch.from_numpy(lens))
@@ -61,7 +61,7 @@ def test_raw_stage_times_cover_the_raw_decoder():
 
 def test_stage_spans_reach_the_profiler():
     data = bytes(range(256)) * 8
-    codec = BlockCodec(block=1024)
+    codec = BlockCodec(block=1024, device="cpu")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         codec.decompress(codec.compress(data))
