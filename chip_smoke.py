@@ -16,8 +16,9 @@ non-zero):
               decompress of the frozen 8 MiB corpus (256 blocks x 32768
               bytes; the match search's per-k kernels run 11 times, k = 2
               .. 12, and its probe tier's gather and rank once or more
-              per wave), of one decode_batch_raw of its raw payload and of
-              the 2^18 decode_block is recorded as it runs; each recorded
+              per wave; the decompress's lane parse once), of one
+              decode_batch_raw of its raw payload and of the 2^18
+              decode_block is recorded as it runs; each recorded
               call is then held against the kernel's plain torch version
               on the same inputs, bitwise, and the first and the last call
               of each set of tensor shapes is timed with CUDA events (so
@@ -72,8 +73,8 @@ sys.path.insert(0, str(ROOT))
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks  # noqa: E402
 from lzs_tpu_torch.ops import (  # noqa: E402
-    _kernels, bitpar, decode, pcand, pexpand, pext, pgather, ppack, psync,
-    pwalk)
+    _kernels, bitpar, decode, decode2, pcand, pexpand, pext, pgather, ppack,
+    psync, pwalk)
 from lzs_tpu_torch import spec, trace  # noqa: E402
 
 BLOCK = 1 << 15
@@ -85,7 +86,7 @@ PATH_KERNELS = {
     "main": ("perk_keys", "perk_back_acc", "ext_breaks", "ext_fold",
              "rank_mask", "gather_big", "rowscan_cummax", "rowscan_rcummin",
              "pack", "sync", "expand", "walk_tables", "walk_entries",
-             "walk_descent"),
+             "walk_descent", "parse"),
     "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
 }
@@ -183,6 +184,7 @@ WRAPPERS = {
     "pack": (ppack, "pack_rows", ppack.pack_rows_plain),
     "sync": (psync, "sync_records", psync.sync_records_plain),
     "expand": (pexpand, "expand_records", pexpand.expand_records_plain),
+    "parse": (decode2, "_parse_full", decode2._parse_full_plain),
 }
 
 #: the PyTorch call that computes a kernel's function, where there is one
@@ -190,6 +192,7 @@ WRAPPERS = {
 #: entry takes the call's arguments and returns the call, ready to time.
 #: torch.gather takes int64 indices only, so gather_big's are widened
 #: before the timing (the clamp is a no-op on the path's in-range indices).
+#: No one PyTorch call computes the lane parse.
 LIBRARY = {
     "rowscan_cummax": lambda v: functools.partial(torch.cummax, v, dim=1),
     "rowscan_rcummin": lambda v: lambda: torch.cummin(
@@ -207,8 +210,8 @@ MEMORY_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 #: the fewest int32 operations the function needs per element of its
-#: first operand (expand: per output byte; gather_big: per query),
-#: counted from its definition
+#: first operand (expand: per output byte; gather_big: per query; parse:
+#: per lane-substep), counted from its definition
 #: and not from a kernel's code: a scan 1 (its operator); rank_mask 2
 #: (add, the exclusive difference); gather_big 2 (the clamp); perk_keys 5
 #: (compare, select, max, shift, or); perk_back_acc 18 (unpack 2 keys 5,
@@ -218,13 +221,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: freeze test each); walk_entries 3 per tile of 128 exits; walk_descent
 #: 22 per position over its 7 table entries; pack 8 per unit (offset,
 #: word, shift, two-word OR); sync 18 per unit; expand 4 per byte (its
-#: record, the source, a load, a store)
+#: record, the source, a load, a store); parse 50 per lane-substep (the
+#: 24-bit window of the two-word register 9, the can test 4, the cheaper
+#: of the two decodes, a run of extension nibbles, 15, the record and the
+#: state update 22)
 OPS_PER_ELEMENT = {
     "perk_keys": 5, "perk_back_acc": 18, "ext_breaks": 41, "ext_fold": 17,
     "rank_mask": 2, "gather_big": 2,
     "rowscan_cummax": 1, "rowscan_rcummin": 1, "rowscan_cumsum": 1,
     "walk_tables": 21, "walk_entries": 3 / 128, "walk_descent": 22 / 7,
-    "pack": 8, "sync": 18, "expand": 4,
+    "pack": 8, "sync": 18, "expand": 4, "parse": 50,
 }
 
 
@@ -327,9 +333,12 @@ def _tensor_key(args: tuple, kw: dict) -> str:
 
 
 def _numel(name: str, args: tuple) -> int:
-    """A call's size: its first tensor's elements (gather_big: queries)."""
+    """A call's size: its first tensor's elements (gather_big: queries;
+    parse: lane-substeps, B x L x 4 (span/32 + 2))."""
     if name == "gather_big":
         return args[1].numel()
+    if name == "parse":
+        return args[1].numel() * 4 * (args[3] // 32 + 2)
     return next(a.numel() for a in args if torch.is_tensor(a))
 
 

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "lzs_sync_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P],
     "lzs_expand_rows": [_P, _P, _I, _I, _P, _I, _P],
+    "lzs_parse_lanes": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -116,6 +117,8 @@ class _Library:
             fn.restype = ctypes.c_int
         lib.lzs_error_string.argtypes = [ctypes.c_int]
         lib.lzs_error_string.restype = ctypes.c_char_p
+        for k in KERNELS:
+            k.fn = getattr(lib, k.symbol)
         self.path = so
         return lib
 
@@ -167,7 +170,9 @@ class Kernel:
 
     ``launches`` grows by one for every launch that the library accepted,
     and nowhere else; a run shows that it went through the kernel by
-    reading it.
+    reading it. ``fn`` is the entry point's ctypes function, bound when
+    the library loads, so a launch after the first takes no lock and looks
+    nothing up by name.
     """
 
     def __init__(self, name: str, symbol: str, source: str,
@@ -177,13 +182,17 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.fn = None
 
     def launch(self, device: torch.device, *args) -> None:
-        lib = LIBRARY.get()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, self.symbol)(*args, device.index, stream)
+        if self.fn is None:
+            LIBRARY.get()
+        # the current stream's raw handle, as PyTorch's own generated
+        # kernels fetch it (a torch.cuda.Stream object costs more)
+        err = self.fn(*args, device.index,
+                      torch._C._cuda_getCurrentRawStream(device.index))
         if err != 0:
-            msg = lib.lzs_error_string(err).decode()
+            msg = LIBRARY.get().lzs_error_string(err).decode()
             raise KernelError(f"{self.symbol} launch failed: {msg} ({err})")
         self.launches += 1
 
@@ -227,9 +236,13 @@ SYNC = Kernel("sync", "lzs_sync_rows", "lzs_tpu_torch/csrc/sync.cu",
               "lzs_tpu/ops/psync.py:57")
 EXPAND = Kernel("expand", "lzs_expand_rows", "lzs_tpu_torch/csrc/expand.cu",
                 "lzs_tpu/ops/pexpand.py:80")
+# replaces a lax.scan (the JAX package runs the lane parse as one XLA loop
+# on the device), not a pallas_call
+PARSE = Kernel("parse", "lzs_parse_lanes", "lzs_tpu_torch/csrc/parse.cu",
+               "lzs_tpu/ops/decode2.py:132")
 KERNELS = (PERK_KEYS, PERK_BACK_ACC, EXT_BREAKS, EXT_FOLD, RANK_MASK,
            GATHER_BIG, CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES,
-           WALK_DESCENT, PACK, SYNC, EXPAND)
+           WALK_DESCENT, PACK, SYNC, EXPAND, PARSE)
 
 
 def reset_launches() -> None:

@@ -16,9 +16,12 @@ Each parsed token becomes one int32 record (opos << 13 | is_copy << 11
 card) and ``pexpand.expand_records`` (a kernel on the card) turns the
 records into bytes.
 
-The lane parse here is a plain torch loop over (span/32 + 2) word steps
-x 4 substeps on (B, lanes) tensors; uint32 word arithmetic runs on int64
-masked to 32 bits.
+On a CUDA tensor the lane parse (``_parse_full``) launches
+``csrc/parse.cu``, one thread per (block, lane) carrying the parser state
+in registers through all (span/32 + 2) x 4 substeps; on a CPU tensor it
+runs ``_parse_full_plain``, a torch loop over the same substeps on
+(B, lanes) tensors, with uint32 word arithmetic on int64 masked to 32
+bits.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from .. import trace
 from . import encode as enc
-from . import pexpand, pext
+from . import _kernels, pexpand, pext
 from .sortmatch import clz32
 
 _SUBSTEPS = 4         # tokens parseable per fed 32-bit word
@@ -98,15 +101,9 @@ def _parse_substep(w, bitpos, outpos, mode, cur_off, can):
     return rec.to(i32), bitpos, outpos, mode, cur_off
 
 
-def _parse_full(comp: torch.Tensor, sync_bit: torch.Tensor,
-                sync_out: torch.Tensor, span: int):
-    """Lane-parallel token parse of a batch of block streams.
-
-    comp: uint8[B, C]; sync_bit/sync_out: int32[B, L] sync records.
-    Returns (recs int32[B, (wpl + 2) * 4, L] records in step order, -1
-    for empty slots; out_final int32[B, L] each lane's final output
-    position, which must equal the next lane's starting offset).
-    """
+def _parse_full_plain(comp: torch.Tensor, sync_bit: torch.Tensor,
+                      sync_out: torch.Tensor, span: int):
+    """Plain-torch ``_parse_full`` (same results, any device)."""
     b, nslots = sync_bit.shape
     wpl = span // 32
     tile = _lane_tiles(comp, nslots, span)               # [B, L, wpl+2]
@@ -136,6 +133,40 @@ def _parse_full(comp: torch.Tensor, sync_bit: torch.Tensor,
                 w, bitpos, outpos, mode, cur_off, can)
             recs.append(rec)
     return torch.stack(recs, dim=1), outpos
+
+
+def _parse_full(comp: torch.Tensor, sync_bit: torch.Tensor,
+                sync_out: torch.Tensor, span: int):
+    """Lane-parallel token parse of a batch of block streams.
+
+    comp: uint8[B, C]; sync_bit/sync_out: int32[B, L] sync records (bit
+    offset; output offset bits 0-16 | mode bit 17 | match offset from bit
+    18). Returns (recs int32[B, (span/32 + 2) * 4, L] records
+    opos << 13 | is_copy << 11 | payload in step order, -1 for empty
+    slots; out_final int32[B, L] each lane's final output position, which
+    must equal the next lane's starting offset).
+    """
+    if _kernels.on_cpu(comp, sync_bit, sync_out):
+        return _parse_full_plain(comp, sync_bit, sync_out, span)
+    if comp.dim() != 2 or sync_bit.dim() != 2:
+        raise ValueError(f"comp (B, C) and sync records (B, L) expected, "
+                         f"got {tuple(comp.shape)} and "
+                         f"{tuple(sync_bit.shape)}")
+    b, nslots = sync_bit.shape
+    _kernels.check(comp, "comp", torch.uint8, (b, comp.shape[1]))
+    _kernels.check(sync_bit, "sync_bit", torch.int32)
+    _kernels.check(sync_out, "sync_out", torch.int32, (b, nslots))
+    wpl = span // 32
+    recs = torch.empty((b, (wpl + 2) * _SUBSTEPS, nslots), dtype=torch.int32,
+                       device=comp.device)
+    out_final = torch.empty((b, nslots), dtype=torch.int32,
+                            device=comp.device)
+    if b and nslots:
+        _kernels.PARSE.launch(comp.device, comp.data_ptr(),
+                              sync_bit.data_ptr(), sync_out.data_ptr(), b,
+                              comp.shape[1], nslots, wpl, recs.data_ptr(),
+                              out_final.data_ptr())
+    return recs, out_final
 
 
 def _filled_records(recs: torch.Tensor) -> torch.Tensor:

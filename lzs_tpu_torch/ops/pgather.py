@@ -37,7 +37,7 @@ def gather_big(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_big_plain(tab, idx)
     _kernels.check(tab, "tab", torch.int32)
     _kernels.check(idx, "idx", torch.int32)
-    out = torch.empty((b, q), dtype=torch.int32, device=tab.device)
+    out = torch.empty_like(idx)
     if b and q:
         _kernels.GATHER_BIG.launch(tab.device, tab.data_ptr(), idx.data_ptr(),
                                    out.data_ptr(), b, w, q)

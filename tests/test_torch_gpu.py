@@ -12,9 +12,12 @@ bit, output rows past the shared-memory limit, a capped run head at a
 row's last position) are compared bitwise with the plain versions on the
 same CUDA tensors, as are the bench shapes of the raw decoder
 (303104-position walks, 33792-wide cumsums) and of the match search
-(256 x 32768, and the probe tier's gathers at 256 x 8320 words); the
-codec's bytes, the probe's run lengths and the raw decoder's output on
-the card are compared with the CPU's.
+(256 x 32768, and the probe tier's gathers at 256 x 8320 words) and of
+the container decode's lane parse (256 blocks x 146 lanes at span 2048,
+from the codec's own encode on the card; corrupt records, one lane,
+unaligned and odd byte rows); the codec's bytes (also a 256-block
+container), the probe's run lengths and the raw decoder's output on the
+card are compared with the CPU's.
 """
 
 import numpy as np
@@ -22,8 +25,9 @@ import pytest
 import torch
 
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
-from lzs_tpu_torch.ops import (_kernels, decode, encode, pcand, pexpand, pext,
-                               pgather, ppack, psync, pwalk, sortmatch)
+from lzs_tpu_torch.ops import (_kernels, decode, decode2, encode, pcand,
+                               pexpand, pext, pgather, ppack, psync, pwalk,
+                               sortmatch)
 
 pytestmark = pytest.mark.gpu
 
@@ -143,19 +147,98 @@ def test_rank_mask_kernel(cuda, b, w):
     assert _kernels.RANK_MASK.launches == before + 1
 
 
-@pytest.mark.parametrize("b,w,q", [(3, 1, 7), (5, 1000, 333),
-                                   (256, 8320, 26624), (256, 32768, 1024),
-                                   (256, 1024, 32768)])
-def test_gather_kernel(cuda, b, w, q):
+@pytest.mark.parametrize("b,w,q,shift", [
+    (3, 1, 7, 0), (5, 1000, 333, 0), (1, 1000, 4099, 0), (1, 5, 4, 0),
+    (4, 1, 1024, 0), (4, 300, 1024, 1), (256, 8320, 26624, 0),
+    (256, 32768, 1024, 0), (256, 1024, 32768, 0)])
+def test_gather_kernel(cuda, b, w, q, shift):
+    """Scalar (Q % 4 != 0, or indices not 16-byte aligned: ``shift``) and
+    int4 forms, W = 1, B = 1 and the probe's three shapes."""
     rng = np.random.default_rng(w + q)
     tab = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (b, w),
                                         dtype=np.int64).astype(np.int32))
     idx = torch.from_numpy(rng.integers(-3, w + 3, (b, q)).astype(np.int32))
-    tab, idx = tab.to(cuda), idx.to(cuda)
+    tab = tab.to(cuda)
+    idx = torch.cat([idx.new_zeros(shift), idx.flatten()]).to(cuda)[
+        shift:].view(b, q)
     before = _kernels.GATHER_BIG.launches
     _equal([pgather.gather_big(tab, idx)],
            [pgather.gather_big_plain(tab, idx)])
     assert _kernels.GATHER_BIG.launches == before + 1
+
+
+def _corpus_like(seed, nbytes):
+    """Text-like bytes (a Zipf draw over a small vocabulary) around a
+    stretch of noise."""
+    rng = np.random.default_rng(seed)
+    vocab = [rng.integers(97, 123, rng.integers(2, 10), dtype=np.uint8)
+             .tobytes() for _ in range(400)]
+    pick = np.minimum(rng.zipf(1.3, nbytes // 4), 400) - 1
+    text = b" ".join(vocab[i] for i in pick)
+    noise = rng.integers(0, 256, nbytes // 8, dtype=np.uint8).tobytes()
+    return (text[:nbytes // 2] + noise + text[nbytes // 2:])[:nbytes]
+
+
+def _parse_equal(comp, sbit, sout, span):
+    before = _kernels.PARSE.launches
+    got = decode2._parse_full(comp, sbit, sout, span)
+    assert _kernels.PARSE.launches == before + 1
+    _equal(got, decode2._parse_full_plain(comp, sbit, sout, span))
+    return got
+
+
+def test_parse_kernel_corpus_shape(cuda):
+    """256 blocks of 32768 bytes encoded by the codec on the card: 146
+    lanes, 264 substeps each; the lanes end where the next ones start."""
+    block = 1 << 15
+    data = _corpus_like(4, 256 * block)
+    x, lens = pad_blocks(data, block)
+    n = torch.from_numpy(lens).to(cuda)
+    codec = BlockCodec(block=block, device=cuda)
+    comp, _, sbit, sout, _ = codec.encode_batch(torch.from_numpy(x).to(cuda),
+                                                n)
+    assert comp.shape == (256, 36876) and sbit.shape == (256, 146)
+    recs, final = _parse_equal(comp, sbit, sout, 2048)
+    assert recs.shape == (256, 264, 146)
+    nxt = torch.cat([sout[:, 1:] & 0x1FFFF, n[:, None]], dim=1)
+    assert torch.equal(final, nxt)
+
+
+@pytest.mark.parametrize("span,nslots,extra,shift", [
+    (2048, 146, 0, 0), (2048, 5, -258, 0), (2048, 5, 41, 1),
+    (160, 12, 13, 0), (160, 12, -7, 2), (2048, 1, 0, 0), (160, 1, 6, 3)])
+def test_parse_kernel_corrupt_records(cuda, span, nslots, extra, shift):
+    """Batch 33: half the rows with plausible records, half with any bit
+    offset in [0, 8C] and any packed state (bit 31 set in some); byte rows
+    longer or shorter than the lanes' words, odd lengths, and rows that
+    start ``shift`` bytes past a 4-byte boundary."""
+    b, c = 33, nslots * span // 8 + extra
+    rng = np.random.default_rng(span + nslots + extra)
+    comp = rng.integers(0, 256, b * c + shift, dtype=np.uint8)
+    sbit = rng.integers(0, 8 * c + 1, (b, nslots))
+    sbit[:16] = np.maximum(np.arange(nslots) * span
+                           - rng.integers(0, 25, (16, nslots)), 0)
+    sout = rng.integers(0, 1 << 31, (b, nslots), dtype=np.int64)
+    sout[::5] |= 1 << 31
+    sout = sout.astype(np.uint32).view(np.int32)
+    comp_t = torch.from_numpy(comp).to(cuda)[shift:].view(b, c)
+    recs, _ = _parse_equal(comp_t, torch.from_numpy(sbit.astype(np.int32))
+                           .to(cuda), torch.from_numpy(sout).to(cuda), span)
+    assert (recs >= 0).any() or nslots == 1
+
+
+def test_container_256_blocks_on_card_equals_cpu(cuda):
+    """A 256-block container: the card's bytes are the CPU's, and the card
+    decodes it through the parse, fill and expand kernels, once each."""
+    data = _corpus_like(6, 256 * 2048 - 100)
+    gpu = BlockCodec(block=2048, device=cuda)
+    blob = gpu.compress(data)
+    assert blob == BlockCodec(block=2048, device="cpu").compress(data)
+    _kernels.reset_launches()
+    assert gpu.decompress(blob) == data
+    counts = _kernels.launch_counts()
+    assert (counts["parse"], counts["rowscan_cummax"], counts["expand"]) == (
+        1, 1, 1)
 
 
 def test_probe_on_card_equals_cpu(cuda):
@@ -411,3 +494,12 @@ def test_wrappers_reject_bad_operands(cuda):
         pgather.gather_big(v, v[:, ::2])
     with pytest.raises(ValueError):
         pgather.gather_big(v, v[:3].contiguous())
+    comp = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        decode2._parse_full(comp.to(torch.int32), v, v, 160)
+    with pytest.raises(ValueError):
+        decode2._parse_full(comp, v, v[:, ::2], 160)
+    with pytest.raises(ValueError):
+        decode2._parse_full(comp[:3], v, v, 160)
+    with pytest.raises(ValueError):
+        decode2._parse_full(comp, v, v.cpu(), 160)
