@@ -14,8 +14,8 @@ non-zero):
               once) into one library and load it;
   3. kernels  every kernel wrapper call of one greedy compress +
               decompress of the frozen 8 MiB corpus (256 blocks x 32768
-              bytes; the match search's per-k kernels run 11 times, k = 2
-              .. 12, and its probe tier's gather and rank once or more
+              bytes; the match search's level kernel runs 11 times, k =
+              2 .. 12, and its probe tier's gather and rank once or more
               per wave; the decompress's lane parse once), of one
               decode_batch_raw of its raw payload and of the 2^18
               decode_block is recorded as it runs; each recorded
@@ -24,7 +24,9 @@ non-zero):
               of each set of tensor shapes is timed with CUDA events (so
               every kernel is checked at exactly the shapes its paths give
               it), beside its bound and, where one PyTorch call computes
-              the same function, that call;
+              the same function, that call; and the library row sort of
+              one level's keys, which the level kernel keeps in shared
+              memory, is timed beside that level;
   4. main     BlockCodec(block=32768, device="cuda") compress + decompress
               of the corpus with every launch counter reset just before;
               the round trip must be exact, the raw payload must equal the
@@ -83,9 +85,9 @@ REPS = 10
 
 #: kernels each path must launch (the counters are reset before each)
 PATH_KERNELS = {
-    "main": ("perk_keys", "perk_back_acc", "ext_breaks", "ext_fold",
-             "rank_mask", "gather_big", "rowscan_cummax", "rowscan_rcummin",
-             "pack", "sync", "expand", "walk_tables", "walk_entries",
+    "main": ("perk_level", "ext_breaks", "ext_fold", "rank_mask",
+             "gather_big", "rowscan_cummax", "rowscan_rcummin", "pack",
+             "sync", "expand", "walk_tables", "walk_entries",
              "walk_descent", "parse"),
     "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
@@ -168,8 +170,7 @@ def phase_build() -> None:
 
 #: each kernel's wrapper (module, attribute) and its plain version
 WRAPPERS = {
-    "perk_keys": (pcand, "perk_keys", pcand.perk_keys_plain),
-    "perk_back_acc": (pcand, "perk_back_acc", pcand.perk_back_acc_plain),
+    "perk_level": (pcand, "perk_level", pcand.perk_level_plain),
     "ext_breaks": (pext, "ext_breaks", pext.ext_breaks_plain),
     "ext_fold": (pext, "ext_fold", pext.ext_fold_plain),
     "rank_mask": (pext, "rank_mask", pext.rank_mask_plain),
@@ -213,9 +214,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: first operand (expand: per output byte; gather_big: per query; parse:
 #: per lane-substep), counted from its definition
 #: and not from a kernel's code: a scan 1 (its operator); rank_mask 2
-#: (add, the exclusive difference); gather_big 2 (the clamp); perk_keys 5
-#: (compare, select, max, shift, or); perk_back_acc 18 (unpack 2 keys 5,
-#: window and segment tests 4, hit 4, pack 4, max 1); ext_breaks 41 (capped
+#: (add, the exclusive difference); gather_big 2 (the clamp); perk_level 37:
+#: the keys 5 (compare, select, max, shift, or), the row sort 14 (a
+#: comparison sort of N keys needs log2(N!) compares, 13.56 per key at
+#: the path's N = 32768, rounded up; bound by bytes either way) and the
+#: fold 18 (unpack 2 keys 5, window and segment tests 4,
+#: hit 4, pack 4, max 1); ext_breaks 41 (capped
 #: and head 11, break info 7, min 1, next break, steal and probe 14, pack
 #: 8); ext_fold 17; walk_tables 21 (7 table levels, a composition and a
 #: freeze test each); walk_entries 3 per tile of 128 exits; walk_descent
@@ -226,7 +230,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: of the two decodes, a run of extension nibbles, 15, the record and the
 #: state update 22)
 OPS_PER_ELEMENT = {
-    "perk_keys": 5, "perk_back_acc": 18, "ext_breaks": 41, "ext_fold": 17,
+    "perk_level": 5 + 14 + 18, "ext_breaks": 41, "ext_fold": 17,
     "rank_mask": 2, "gather_big": 2,
     "rowscan_cummax": 1, "rowscan_rcummin": 1, "rowscan_cumsum": 1,
     "walk_tables": 21, "walk_entries": 3 / 128, "walk_descent": 22 / 7,
@@ -367,9 +371,10 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
             raise AssertionError(f"{path}: kernels called {called}, listed "
                                  f"{sorted(names)}")
 
-    # context: the library row sort between perk_keys and perk_back_acc
-    args, kw = calls["main"]["perk_keys"][0]
-    keys = pcand.perk_keys(*args, **kw)
+    # context: the library row sort of the first level's keys, which
+    # perk_level keeps in shared memory (its line below times that level)
+    args, _ = calls["main"]["perk_level"][0]
+    keys = pcand.perk_keys_plain(args[0], args[1], args[4])
     log("kernels", f"context: torch.sort of one level's keys "
         f"({'x'.join(map(str, keys.shape))} int32) "
         f"{cuda_ms(lambda: torch.sort(keys, dim=1)):.4f} ms")

@@ -47,8 +47,7 @@ _SIGNATURES = {
     "lzs_cumsum_rows": [_P, _P, _I, _I],
     "lzs_rank_mask_rows": [_P, _P, _I, _I],
     "lzs_gather_rows": [_P, _P, _P, _I, _I, _I],
-    "lzs_perk_keys": [_P, _P, _P, _I, _I, _I],
-    "lzs_perk_back_acc": [_P, _P, _P, _P, _I, _I, _I, _I],
+    "lzs_perk_level": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     "lzs_ext_breaks": [_P, _P, _P, _P, _I, _I, _I],
     "lzs_ext_fold": [_P, _P, _P, _P, _I, _I, _I],
     "lzs_walk_tables": [_P, _P, _P, _I, _I],
@@ -212,11 +211,9 @@ RANK_MASK = Kernel("rank_mask", "lzs_rank_mask_rows",
 GATHER_BIG = Kernel("gather_big", "lzs_gather_rows",
                     "lzs_tpu_torch/csrc/gather.cu",
                     "lzs_tpu/ops/pgather.py:29")
-PERK_KEYS = Kernel("perk_keys", "lzs_perk_keys", "lzs_tpu_torch/csrc/cand.cu",
-                   "lzs_tpu/ops/pcand.py:49")
-PERK_BACK_ACC = Kernel("perk_back_acc", "lzs_perk_back_acc",
-                       "lzs_tpu_torch/csrc/cand.cu",
-                       "lzs_tpu/ops/pcand.py:58,69")
+PERK_LEVEL = Kernel("perk_level", "lzs_perk_level",
+                    "lzs_tpu_torch/csrc/cand.cu",
+                    "lzs_tpu/ops/pcand.py:49,58,69")
 EXT_BREAKS = Kernel("ext_breaks", "lzs_ext_breaks",
                     "lzs_tpu_torch/csrc/extend.cu", "lzs_tpu/ops/pext.py:65")
 EXT_FOLD = Kernel("ext_fold", "lzs_ext_fold", "lzs_tpu_torch/csrc/extend.cu",
@@ -240,9 +237,9 @@ EXPAND = Kernel("expand", "lzs_expand_rows", "lzs_tpu_torch/csrc/expand.cu",
 # on the device), not a pallas_call
 PARSE = Kernel("parse", "lzs_parse_lanes", "lzs_tpu_torch/csrc/parse.cu",
                "lzs_tpu/ops/decode2.py:132")
-KERNELS = (PERK_KEYS, PERK_BACK_ACC, EXT_BREAKS, EXT_FOLD, RANK_MASK,
-           GATHER_BIG, CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES,
-           WALK_DESCENT, PACK, SYNC, EXPAND, PARSE)
+KERNELS = (PERK_LEVEL, EXT_BREAKS, EXT_FOLD, RANK_MASK, GATHER_BIG,
+           CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES, WALK_DESCENT,
+           PACK, SYNC, EXPAND, PARSE)
 
 
 def reset_launches() -> None:

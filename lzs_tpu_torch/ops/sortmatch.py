@@ -2,11 +2,12 @@
 
 Port of ``lzs_tpu.ops.sortmatch`` in the form the JAX package runs on its
 accelerator: ``candidates_batch`` runs the per-k glue of ``pcand`` (K1, a
-row sort, K2+K3) and ``_extend_batch`` the extension scans of ``pext``
-(K4, the probe tier, K5); the probe tier compacts its lanes into waves
-and runs on ``pgather.gather_big`` (K10), ``pext.rcummin_rows`` (K7) and
-``pext.rank_mask`` (K6). Each kernel stage launches a CUDA kernel on a
-CUDA tensor. Per position i of each block:
+row sort and K2+K3, one kernel per level) and ``_extend_batch`` the
+extension scans of ``pext`` (K4, the probe tier, K5); the probe tier
+compacts its lanes into waves and runs on ``pgather.gather_big`` (K10),
+``pext.rcummin_rows`` (K7) and ``pext.rank_mask`` (K6). Each kernel
+stage launches a CUDA kernel on a CUDA tensor. Per position i of each
+block:
 
   score[i] = max k in [2, cap] such that the k-gram at i occurs at some
              j in [i - window, i - 1]             (capped greedy score)
@@ -21,8 +22,8 @@ derivation of every step. What differs here:
     last key to the first (torch.sort takes one key). Gram words are
     uint32 values held in int64, since torch has no uint32 sort.
   * The per-k position-restoring sort becomes a store by position inside
-    ``pcand.perk_back_acc``: the seg-sorted keys carry a permutation of
-    the positions.
+    ``pcand.perk_level``: the seg-sorted keys carry a permutation of the
+    positions.
   * The probe's gram words and byte-aligned spans are uint32 values held
     in int64 (the gathered words themselves are int32 bit patterns).
 """

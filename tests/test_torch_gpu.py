@@ -90,23 +90,39 @@ def _rank_inputs(seed, b, w, dev):
 
 @pytest.mark.parametrize("window", [64, 2047])
 @pytest.mark.parametrize("k", [2, 12])
-@pytest.mark.parametrize("b,w", [(33, 1000), (5, 1025), (256, 32768)])
-def test_perk_kernels(cuda, b, w, k, window):
+@pytest.mark.parametrize("b,w", [(33, 1000), (5, 1025), (3, 4097),
+                                 (2, 16384), (256, 32768)])
+def test_perk_level(cuda, b, w, k, window):
+    """Random segments, plus one row that is one segment (plcp >= k but at
+    rank 0) and one of singletons (plcp = 0); the widths give the sort
+    network 1024 to 32768 slots."""
     plcp, p, n = _rank_inputs(b * w + k, b, w, cuda)
-    before = _kernels.PERK_KEYS.launches, _kernels.PERK_BACK_ACC.launches
-    keys = pcand.perk_keys(plcp, p, k)
-    _equal([keys], [pcand.perk_keys_plain(plcp, p, k)])
-    skey = torch.sort(keys, dim=1).values
+    plcp[0] = 12
+    plcp[0, 0] = 0
+    plcp[-1] = 0
     # a running best of lower levels, -1 where none matched
     lower = torch.randint(2, k + 1, (b, w), dtype=torch.int32, device=cuda)
     pk = torch.where(plcp > 6, (lower << 16) | (32768 - plcp - 1), -1)
     pk0 = pk.clone()
-    got = pcand.perk_back_acc(skey, n, pk, k, window)
-    _equal([got], [pcand.perk_back_acc_plain(skey, n, pk, k, window)])
+    before = _kernels.PERK_LEVEL.launches
+    got = pcand.perk_level(plcp, p, n, pk, k, window)
+    assert _kernels.PERK_LEVEL.launches == before + 1
+    _equal([got], [pcand.perk_level_plain(plcp, p, n, pk, k, window)])
     assert torch.equal(pk, pk0)
-    assert ((got >> 16) == k).any()
-    assert (_kernels.PERK_KEYS.launches, _kernels.PERK_BACK_ACC.launches) \
-        == (before[0] + 1, before[1] + 1)
+    assert ((got[0] >> 16) == k).any()         # one segment: hits
+    assert torch.equal(got[-1], pk[-1])        # singletons: none
+
+
+@pytest.mark.parametrize("w", [1000, 32768])
+def test_perk_level_position_missing_from_p_keeps_pk(cuda, w):
+    """A p that repeats one position and so lacks another: with no hit in
+    the level (singletons), every position keeps pk, the missing one too."""
+    plcp, p, n = _rank_inputs(w, 2, w, cuda)
+    plcp.zero_()
+    p[:, 1] = p[:, 0]
+    pk = _rows(w + 1, 2, w, cuda).clamp_min(-1)
+    assert torch.equal(pcand.perk_level(plcp, p, n, pk, 2, 2047), pk)
+    assert torch.equal(pcand.perk_level_plain(plcp, p, n, pk, 2, 2047), pk)
 
 
 @pytest.mark.parametrize("b,w", [(33, 1000), (5, 1025), (256, 32768)])
@@ -434,11 +450,10 @@ def test_codec_on_card_equals_cpu(cuda):
         _kernels.reset_launches()
         blob = gpu.compress(data)
         counts = _kernels.launch_counts()
-        assert {k: counts[k] for k in ("perk_keys", "perk_back_acc",
-                                       "ext_breaks", "ext_fold",
-                                       "walk_descent")} == {
-            "perk_keys": 11, "perk_back_acc": 11, "ext_breaks": 1,
-            "ext_fold": 1, "walk_descent": 1}
+        assert {k: counts[k] for k in ("perk_level", "ext_breaks",
+                                       "ext_fold", "walk_descent")} == {
+            "perk_level": 11, "ext_breaks": 1, "ext_fold": 1,
+            "walk_descent": 1}
         assert blob == cpu.compress(data)
         assert gpu.decompress(blob) == data
         assert gpu.compress(b"") == cpu.compress(b"")
@@ -467,15 +482,17 @@ def test_wrappers_reject_bad_operands(cuda):
         pext.cumsum_rows_wide(v.to(torch.int64))
     n = torch.full((4,), 64, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        pcand.perk_keys(v, v[:, :32].contiguous(), 2)
+        pcand.perk_level(v, v[:, :32].contiguous(), n, v, 2, 64)
     with pytest.raises(TypeError):
-        pcand.perk_keys(v.to(torch.int64), v.to(torch.int64), 2)
+        pcand.perk_level(v.to(torch.int64), v, n, v, 2, 64)
+    with pytest.raises(TypeError):
+        pcand.perk_level(v, v, n, v.to(torch.int64), 2, 64)
     with pytest.raises(ValueError):
-        pcand.perk_back_acc(v, n[:3].contiguous(), v, 2, 64)
+        pcand.perk_level(v, v, n[:3].contiguous(), v, 2, 64)
     with pytest.raises(ValueError):
-        pcand.perk_back_acc(v, n, v[:, ::2], 2, 64)
+        pcand.perk_level(v, v, n, v[:, ::2], 2, 64)
     with pytest.raises(ValueError):
-        pcand.perk_keys(v, v.cpu(), 2)
+        pcand.perk_level(v, v.cpu(), n, v, 2, 64)
     with pytest.raises(ValueError):
         pext.ext_breaks(v, v[:, ::2], n, 12)
     with pytest.raises(TypeError):
