@@ -73,8 +73,14 @@ class BlockCodec:
     parity) or "lazy" (1-token lookahead: usually smaller output, still a
     valid LZS stream; the container flags byte records which policy
     produced a blob).
+
+    ``block`` is the only positional field. The JAX package's codec takes
+    (block, chunk, span, policy) and the port has no ``chunk``, so the
+    rest are keyword-only: a JAX-style ``BlockCodec(block, 4096)`` raises
+    TypeError instead of building a codec with another span.
     """
     block: int = DEFAULT_BLOCK
+    _: dataclasses.KW_ONLY
     span: int = enc_ops.SYNC_SPAN
     policy: str = "greedy"
     device: torch.device | str = "cuda"

@@ -18,11 +18,14 @@ As in the TPU kernel, whose empty record -1 decodes as a copy of offset
 2047 from position -1, a byte with no covering record sets both bits.
 
 On a CUDA tensor ``expand_records`` launches ``csrc/expand.cu`` (one
-block per row; the decoded row sits in shared memory where it fits and is
-read back from the output in device memory above that, so a source
-before the current chunk is a plain read); on a CPU tensor it runs
-``expand_records_plain``, which resolves the chains by pointer doubling
-over the whole row.
+block per row walking it in chunks; a carried slot cursor streams the
+record row through shared memory, where a max-scan of each chunk's
+records by output position gives every byte its covering record; the
+decoded row sits in shared memory where it fits and is read back from
+the output in device memory above that, so a source before the current
+chunk is a plain read); on a CPU tensor it runs ``expand_records_plain``,
+which finds each byte's record by binary search and resolves the chains
+by pointer doubling over the whole row.
 """
 
 from __future__ import annotations

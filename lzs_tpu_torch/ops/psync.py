@@ -19,8 +19,10 @@ c >= nsync (end_bits a multiple of span) is dropped, as the sentinel
 fill overwrote it in the sort form. The record keeps the TPU form's
 fields bit for bit: the 0xFFF offset clip and 29 bits of record.
 
-On a CUDA tensor ``sync_records`` launches ``csrc/sync.cu``; on a CPU
-tensor it runs ``sync_records_plain``.
+On a CUDA tensor ``sync_records`` launches ``csrc/sync.cu`` (a row over
+a cluster of up to four CTAs, 16 positions per thread in registers; the
+kernel reads ``starts`` as bytes, so the encoder's bool row goes in as it
+is); on a CPU tensor it runs ``sync_records_plain``.
 """
 
 from __future__ import annotations
@@ -72,18 +74,25 @@ def sync_records(starts, width, off, offs, end_bits, n, *, span: int,
                  nibbles: int, short_len: int, ext_len: int, nslots: int):
     """(sync_bit, sync_out int32[B, nslots], nsync int32[B]).
 
-    starts: bool or int32[B, N] token starts; width, off, offs: int32[B,
-    N] unit widths, match offsets, unit bit offsets; end_bits: int32[B]
-    bit offset of the end marker; n: int32[B] block lengths.
+    starts: bool, uint8 or int32[B, N] token starts (nonzero at a token
+    head; the kernel reads bool and uint8 rows as they are, an int32 row
+    costs one conversion); width, off, offs: int32[B, N] unit widths,
+    match offsets, unit bit offsets, N <= 32768; end_bits: int32[B] bit
+    offset of the end marker; n: int32[B] block lengths.
     """
     kw = dict(span=span, nibbles=nibbles, short_len=short_len,
               ext_len=ext_len, nslots=nslots)
     if _kernels.on_cpu(starts, width, off, offs, end_bits, n):
         return sync_records_plain(starts, width, off, offs, end_bits, n, **kw)
     b, npos = width.shape
-    starts = starts.to(torch.int32).contiguous()
-    for name, t, shape in (("starts", starts, (b, npos)),
-                           ("width", width, (b, npos)),
+    if starts.dtype == torch.int32:
+        starts = starts != 0
+    if starts.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"starts: expected bool, uint8 or int32, got "
+                        f"{starts.dtype}")
+    pext.check_npos(npos)
+    _kernels.check(starts, "starts", starts.dtype, (b, npos))
+    for name, t, shape in (("width", width, (b, npos)),
                            ("off", off, (b, npos)), ("offs", offs, (b, npos)),
                            ("end_bits", end_bits, (b,)), ("n", n, (b,))):
         _kernels.check(t, name, torch.int32, shape)

@@ -202,6 +202,22 @@ def test_default_device_is_the_card(codecs):
         decode.decode_bytes(GOLDEN_COMPRESSED, 1024)
 
 
+def test_fields_after_block_are_keyword_only():
+    """JAX's codec is (block, chunk, span, policy) and the port's has no
+    chunk: a JAX-style positional call raises instead of setting the span,
+    and the same keywords build the JAX codec's container bytes."""
+    with pytest.raises(TypeError):
+        BlockCodec(1 << 15, 4096)
+    with pytest.raises(TypeError):
+        BlockCodec(BLOCK, 288, "greedy", "cpu")
+    port = BlockCodec(BLOCK, span=288, device="cpu")
+    assert (port.block, port.span, port.policy) == (BLOCK, 288, "greedy")
+    data = CASES["corpus_a"]
+    blob = port.compress(data)
+    assert blob == JaxCodec(block=BLOCK, span=288).compress(data)
+    assert blob != BlockCodec(block=BLOCK, device="cpu").compress(data)
+
+
 def test_container_wrong_magic_version_and_codec(codecs):
     port, _ = codecs["greedy"]
     blob = port.compress(mixed_corpus(3000, seed=14))

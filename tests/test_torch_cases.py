@@ -1,0 +1,234 @@
+"""Seeded edge inputs for the sync (K16) and expand (K17) functions.
+
+tests/test_torch_sync.py and tests/test_torch_expand.py hold the port's
+plain versions to the JAX package on these inputs on the CPU;
+tests/test_torch_gpu.py holds the kernels to the plain versions on them
+on the card. The module imports no jax, so the GPU machine can import it;
+its own tests check that the inputs have the properties they are made
+for.
+
+Sync rows are emission-unit rows of a token sequence: a head per token
+(9 bits for a literal, 2 + 7 or 11 + 2 or 4 for a copy), extension
+nibbles of 4 bits right after the head of a copy of length >= 8 (one per
+15 bytes past the 8th), bit offsets as the exclusive running sum of the
+widths, so every parse step is at most 24 bits from the next and every
+span boundary has one crossing step. Expand rows are cummax-filled record
+rows ((opos << 13) | (is_copy << 11) | payload, -1 before the first
+record), hand-made or from the port's own encoder and lane parse.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from lzs_tpu_torch import spec
+from lzs_tpu_torch.ops import decode2, encode
+
+# a copy of length >= 8 starting here in a wide row: its nibble chain
+# crosses the next 8192-position boundary (each CTA of the sync kernel
+# takes 8192 positions)
+CHAINS = ((8000, 3000), (16300, 1600), (24560, 800))
+
+
+def sync_row(rng, npos, n, *, chains=(), wide_off=False, end_span=None):
+    """One unit row over ``n`` of ``npos`` positions.
+
+    chains: (position, length) of long copies that start at those
+    positions (the token before is cut short); wide_off: head offsets up to 2^15
+    (above the record's 0xFFF clip); end_span: stop at the first token
+    end past n/2 whose next multiple of end_span is < 24 bits on, and put
+    the end marker there (end_bits a multiple of the span).
+    Returns (starts, width, off, offs, end_bits, n).
+    """
+    starts = np.zeros(npos, bool)
+    width = np.zeros(npos, np.int32)
+    off = rng.integers(1, (1 << 15) if wide_off else 2048, npos)
+    pending = sorted(chains)
+    p = total = 0
+    end_bits = None
+    while p < n:
+        if pending and p >= pending[0][0]:
+            length = pending.pop(0)[1]
+        else:
+            kind = rng.random()
+            length = (1 if kind < 0.45 else int(rng.integers(2, 8))
+                      if kind < 0.8 else int(rng.integers(8, 200)))
+            if pending:
+                length = min(length, pending[0][0] - p)
+        length = min(length, n - p)
+        starts[p] = True
+        if length == 1:
+            width[p] = 9
+        else:
+            width[p] = 2 + (7 if off[p] < 128 else 11) + (
+                2 if length <= 4 else 4)
+            if length >= spec.MAX_SHORT_LENGTH:
+                k = (length - spec.MAX_SHORT_LENGTH) // \
+                    spec.MAX_EXTENDED_LENGTH + 1
+                width[p + 1:p + 1 + k] = 4
+        total += int(width[p:p + length].sum())
+        p += length
+        if end_span and 2 * p >= n:
+            mark = -(-total // end_span) * end_span
+            if mark - total < 24:
+                end_bits, n = mark, p
+                break
+    offs = np.concatenate([[0], np.cumsum(width)[:-1]]).astype(np.int32)
+    if end_bits is None:
+        end_bits = total
+    return starts, width, off.astype(np.int32), offs, end_bits, n
+
+
+def sync_batch(seed, b, npos, span):
+    """A batch of ``b`` unit rows: row 0 with the long copies of CHAINS
+    (nibble chains whose owner lies in an earlier 8192-position segment),
+    row 1 with offsets above 0xFFF, row 2 whose end_bits is a multiple of
+    ``span`` (where a row is long enough to place one), row 3 empty, row 4
+    a third full, the rest random lengths with either offset range.
+    Returns numpy (starts bool, width, off, offs int32 [b, npos],
+    end_bits, n int32 [b])."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for r in range(b):
+        kw = {}
+        if r == 0:
+            n, kw["chains"] = npos, [c for c in CHAINS if c[0] < npos]
+        elif r == 1:
+            n, kw["wide_off"] = npos, True
+        elif r == 2:
+            n, kw["end_span"] = npos, span
+        elif r == 3:
+            n = 0
+        elif r == 4:
+            n = npos // 3
+        else:
+            n = int(rng.integers(npos // 2, npos + 1))
+            kw["wide_off"] = bool(r % 2)
+        rows.append(sync_row(rng, npos, n, **kw))
+    cols = list(zip(*rows))
+    return (np.stack(cols[0]), np.stack(cols[1]), np.stack(cols[2]),
+            np.stack(cols[3]), np.array(cols[4], np.int32),
+            np.array(cols[5], np.int32))
+
+
+def sync_kwargs(npos, span):
+    return dict(span=span, nibbles=encode.NIBBLES_PER_STEP,
+                short_len=spec.MAX_SHORT_LENGTH,
+                ext_len=spec.MAX_EXTENDED_LENGTH,
+                nslots=encode.sync_slots(npos, span))
+
+
+def hand_fill(recs, s, stride=3):
+    """Records (opos, is_copy, payload) at every ``stride``-th slot, -1
+    between, cummax-filled as decode2._filled_records leaves them."""
+    row = np.full(s, -1, np.int64)
+    for k, (opos, is_copy, pay) in enumerate(recs):
+        row[stride * k + stride - 1] = (opos << 13) | (is_copy << 11) | pay
+    return np.maximum.accumulate(row).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def real_fill(data: bytes, block: int, span: int) -> np.ndarray:
+    """Filled records of one block from the port's encoder and lane parse
+    on the CPU (both pinned to JAX in test_torch_sync and
+    test_torch_decode)."""
+    x = np.zeros((1, block), np.uint8)
+    x[0, :len(data)] = np.frombuffer(data, np.uint8)
+    n = torch.tensor([len(data)], dtype=torch.int32)
+    comp, _, sbit, sout, _ = encode.encode_batch_sync(
+        torch.from_numpy(x), n, span=span)
+    recs, _ = decode2._parse_full(comp, sbit, sout, span)
+    return decode2._filled_records(recs)[0].numpy()
+
+
+def expand_rows(out_cap, s):
+    """Hand-made (records, n, stride) rows that fit ``s`` slots: one copy
+    record over the rest of the row after a literal period of 1, 3, 27
+    and (where the slots allow) 1999 bytes; a chain of offset-4 copies
+    whose sources lie in the copy before, so chains run up to every chunk
+    boundary; a row whose first record starts at 3 (status 3); a copy
+    from before the block start (status 2); an empty block."""
+    rows = []
+    for period in (1, 3, 27, 1999):
+        if period + 1 <= s:
+            recs = [(k, 0, (k * 7 + 1) % 251) for k in range(period)]
+            rows.append((recs + [(period, 1, period)], out_cap, 1))
+    chain = [(k, 0, 65 + k) for k in range(4)]
+    for m in range(1, out_cap // 4):
+        if len(chain) + 2 > s:
+            break
+        chain += [(4 * m, 0, m % 251), (4 * m + 1, 1, 4)]
+    rows.append((chain, out_cap, 1))
+    rows.append(([(3, 0, 65), (4, 1, 1)], min(50, out_cap), 1))
+    rows.append(([(0, 0, 65), (1, 1, 5), (9, 0, 66)], min(100, out_cap), 3))
+    rows.append(([(0, 0, 65)], 0, 3))
+    return rows
+
+
+def _deep_chain() -> bytes:
+    lits = [c for c in range(256) if c not in (65, 66)]
+    return b"".join(bytes([lits[k % len(lits)], 65, 66])
+                    for k in range(1300))[:3900]
+
+
+def expand_batch(seed, out_cap, s=None):
+    """Filled record rows (int32 [b, S]) and block lengths (int32 [b]).
+
+    With ``s`` (a multiple of 128, >= 768): the hand-made rows at that
+    width. Without: the hand-made rows plus three real blocks of 4096
+    bytes, the widest record windows a chunk sees (random bytes at span
+    160: lanes of about 18 literals, 28 slots each) and the deep copy
+    chain at spans 160 and 2048, all padded to one width by repeating
+    each row's last record (which changes no covering record)."""
+    rng = np.random.default_rng(seed)
+    real = []
+    if s is None:
+        noise = rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+        real = [(real_fill(noise, 4096, 160), 4096),
+                (real_fill(_deep_chain(), 4096, 160), 3900),
+                (real_fill(_deep_chain(), 4096, 2048), 3900)]
+        s = max([len(f) for f, _ in real] + [out_cap // 2 + 16, 2048])
+        s = -(-s // 128) * 128
+    rows = expand_rows(out_cap, s)
+    fills = [hand_fill(r, s, stride) for r, _, stride in rows]
+    ns = [n for _, n, _ in rows]
+    for f, n in real:
+        fills.append(np.concatenate([f, np.full(s - len(f), f[-1],
+                                                np.int32)]))
+        ns.append(min(n, out_cap))
+    return np.stack(fills), np.array(ns, np.int32)
+
+
+@pytest.mark.parametrize("npos,span", [(1, 128), (96, 96), (8193, 288),
+                                       (32768, 2048)])
+def test_sync_batch_properties(npos, span):
+    starts, width, off, offs, end_bits, n = sync_batch(npos, 33, npos, span)
+    assert starts.shape == (33, npos) and starts.dtype == bool
+    assert (np.diff(offs, axis=1) >= 0).all()
+    assert (width[~starts] <= 4).all() and (width[starts] >= 9).all()
+    assert (end_bits >= offs[:, -1]).all() and n[3] == 0
+    if npos >= 96:
+        assert end_bits[2] % span == 0 and end_bits[2] > 0
+    for seg in range(8192, npos - 1000, 8192):
+        # a nibble chain crosses each 8192-position boundary of row 0
+        heads = np.flatnonzero(starts[0])
+        assert (width[0, seg] == 4 and not starts[0, seg]
+                and heads[np.searchsorted(heads, seg) - 1] < seg)
+    if npos >= 96:
+        assert (off[1][starts[1]] > 0xFFF).any()
+
+
+@pytest.mark.parametrize("out_cap", [1000, 32767])
+def test_expand_batch_properties(out_cap):
+    for s in (768, None):
+        rec, n = expand_batch(out_cap, out_cap, s)
+        assert rec.shape[1] % 128 == 0 and rec.shape[1] >= 768
+        assert (np.diff(rec, axis=1) >= 0).all()
+        assert len(rec) == len(n) and (n <= out_cap).all()
+    # the span-160 row: its first 1024-byte chunk (the expand kernel's
+    # chunk and record tile) takes more than 1024 slots
+    opos = np.where(rec[-3] >= 0, rec[-3] >> 13, -1)
+    per_chunk = np.bincount(opos[opos >= 0] // 1024)
+    assert per_chunk[0] > 1024

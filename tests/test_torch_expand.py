@@ -7,7 +7,10 @@ words (tolerance 0). Rows: the real records of the deep copy-chain block
 of tests/test_sync_decode.py, hand-made records for a long single-record
 copy, a copy source before the block start (status bit 1) and bytes
 with no covering record (status bit 0, which the TPU kernel reports with
-bit 1 as well).
+bit 1 as well). The generated rows of test_torch_cases.expand_batch (one
+record over many chunks, copy chains up to chunk boundaries, the widest
+record windows at span 160, 768 slots, out_cap 1000 and 32767) are held
+to JAX the same way.
 """
 
 import numpy as np
@@ -18,6 +21,8 @@ import jax.numpy as jnp
 
 from lzs_tpu.ops import pexpand as jpexpand
 from lzs_tpu_torch.ops import decode2, encode, pexpand
+
+from test_torch_cases import expand_batch
 
 BLOCK = 4096
 SPAN = 2048
@@ -104,3 +109,19 @@ def test_expand_zero_fills_past_n(rows):
                                     torch.from_numpy(n), BLOCK)
     for row, m in zip(out.numpy(), n):
         assert not row[m:].any()
+
+
+@pytest.mark.parametrize("slots", [768, None])
+@pytest.mark.parametrize("out_cap", [1000, 32767])
+def test_expand_edge_rows_match_jax(out_cap, slots):
+    rec, n = expand_batch(out_cap, out_cap, slots)
+    want_out, want_st = jpexpand.expand_records(jnp.asarray(rec),
+                                                jnp.asarray(n), out_cap)
+    got_out, got_st = pexpand.expand_records(torch.from_numpy(rec),
+                                             torch.from_numpy(n), out_cap)
+    np.testing.assert_array_equal(got_out.numpy(),
+                                  np.asarray(want_out).astype(np.uint8))
+    np.testing.assert_array_equal(got_st.numpy(), np.asarray(want_st))
+    assert {0, 2, 3} <= set(got_st.tolist())
+    period1 = got_out[0, :min(out_cap, 4096)].numpy()
+    assert (period1 == period1[0]).all()

@@ -15,9 +15,12 @@ same CUDA tensors, as are the bench shapes of the raw decoder
 (256 x 32768, and the probe tier's gathers at 256 x 8320 words) and of
 the container decode's lane parse (256 blocks x 146 lanes at span 2048,
 from the codec's own encode on the card; corrupt records, one lane,
-unaligned and odd byte rows); the codec's bytes (also a 256-block
-container), the probe's run lengths and the raw decoder's output on the
-card are compared with the CPU's.
+unaligned and odd byte rows); the sync and expand kernels also take the
+seeded edge rows of tests/test_torch_cases.py (sync: 1 to 32768
+positions over one to four CTAs of a cluster, 16-aligned and unaligned
+rows; expand: fewer rows than SMs and more); the codec's
+bytes (also a 256-block container), the probe's run lengths and the raw
+decoder's output on the card are compared with the CPU's.
 """
 
 import numpy as np
@@ -28,6 +31,8 @@ from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
 from lzs_tpu_torch.ops import (_kernels, decode, decode2, encode, pcand,
                                pexpand, pext, pgather, ppack, psync, pwalk,
                                sortmatch)
+
+from test_torch_cases import expand_batch, hand_fill, sync_batch, sync_kwargs
 
 pytestmark = pytest.mark.gpu
 
@@ -326,20 +331,23 @@ def _long_copy_fill(s, out_cap):
     recs = [(k, 0, k % 251) for k in range(2000)] + [(2000, 1, 1999)]
     recs += [(out_cap // 2, 0, 65), (out_cap // 2 + 1, 1, 2047),
              (out_cap - 5000, 1, 3)]
-    return _hand_fill(recs, s, stride=2)
+    return hand_fill(recs, s, stride=2)
 
 
-@pytest.mark.parametrize("out_cap", [192 * 1024, 1 << 18])
-def test_expand_kernel_wide_rows(cuda, out_cap):
+@pytest.mark.parametrize("rows", [3, 140])
+@pytest.mark.parametrize("out_cap", [160 * 1024, 192 * 1024, 1 << 18])
+def test_expand_kernel_wide_rows(cuda, out_cap, rows):
+    """Rows in shared memory and past it, in fewer CTAs than SMs and in
+    more (3 rows, 140 rows)."""
     s = 4096
-    rows = [(_long_copy_fill(s, out_cap), out_cap),
-            (_long_copy_fill(s, out_cap), out_cap - 777),
-            (_hand_fill([(0, 0, 65), (1, 1, 1)], s), 1000)]
-    rec = torch.from_numpy(np.stack([r[0] for r in rows])).to(cuda)
-    n = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=cuda)
-    got = pexpand.expand_records(rec, n, out_cap)
-    _equal(got, pexpand.expand_records_plain(rec, n, out_cap))
-    assert got[1].tolist() == [0, 0, 0]
+    table = [(_long_copy_fill(s, out_cap), out_cap),
+             (_long_copy_fill(s, out_cap), out_cap - 777),
+             (hand_fill([(0, 0, 65), (1, 1, 1)], s), 1000)]
+    table = (table * rows)[:rows]
+    rec = torch.from_numpy(np.stack([r[0] for r in table])).to(cuda)
+    n = torch.tensor([r[1] for r in table], dtype=torch.int32, device=cuda)
+    got = _expand_equal(rec, n, out_cap)
+    assert not got[1].any()
     row = got[0][0].cpu().numpy()        # the offset-1999 copy's period
     np.testing.assert_array_equal(row[2000:out_cap // 2],
                                   row[1:out_cap // 2 - 1999])
@@ -397,38 +405,101 @@ def _units(dev, npos, datas, span):
     _, _, total, offs, width, starts, off = encode._pipeline_batch(
         xt, nt, 2047, 12)
     nslots = encode.sync_slots(npos, span)
-    return (starts.to(torch.int32), width, off, offs, total - 9, nt), dict(
+    return (starts, width, off, offs, total - 9, nt), dict(
         span=span, nibbles=6, short_len=8, ext_len=15, nslots=nslots)
 
 
 @pytest.mark.parametrize("span", [96, 288, 2048])
 def test_sync_kernel(cuda, span):
+    """Bool starts as the encoder gives them, and int32 and uint8 rows."""
     rng = np.random.default_rng(span)
     datas = [bytes(range(64)), b"Z" * 500 + b"the quick brown fox " * 25,
              rng.integers(0, 256, 1024, dtype=np.uint8).tobytes(), b""]
     args, kw = _units(cuda, 1024, datas, span)
-    _equal(psync.sync_records(*args, **kw),
-           psync.sync_records_plain(*args, **kw))
+    want = psync.sync_records_plain(*args, **kw)
+    for dtype in (torch.bool, torch.int32, torch.uint8):
+        _equal(psync.sync_records(args[0].to(dtype), *args[1:], **kw), want)
 
 
-def _hand_fill(recs, s, stride=3):
-    row = np.full(s, -1, np.int64)
-    for k, (opos, is_copy, pay) in enumerate(recs):
-        row[stride * k + stride - 1] = (opos << 13) | (is_copy << 11) | pay
-    return np.maximum.accumulate(row).astype(np.int32)
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary (the kernel's scalar loads)."""
+    flat = torch.zeros(t.numel() + 4, dtype=t.dtype, device=t.device)
+    flat[4 // t.element_size():][:t.numel()] = t.flatten()
+    return flat[4 // t.element_size():][:t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("npos,span", [(1, 128), (96, 96), (8193, 288),
+                                       (32768, 2048), (32768, 160)])
+def test_sync_kernel_edge_rows(cuda, npos, span):
+    """Batch 33 of generated unit rows (nibble chains across the 8192-
+    position CTAs of a row's cluster, offsets above 0xFFF, end_bits a
+    multiple of the span, empty and short rows), as 16-aligned rows and
+    as unaligned ones."""
+    arrays = [torch.from_numpy(a).to(cuda)
+              for a in sync_batch(npos, 33, npos, span)]
+    kw = sync_kwargs(npos, span)
+    want = psync.sync_records_plain(*arrays, **kw)
+    before = _kernels.SYNC.launches
+    _equal(psync.sync_records(*arrays, **kw), want)
+    _equal(psync.sync_records(*(_misaligned(a) if a.dim() == 2 else a
+                                for a in arrays), **kw), want)
+    assert _kernels.SYNC.launches == before + 2
+    assert (want[0][:, 1:] > 0).any() or npos == 1
+
+
+def test_sync_launches_no_conversion(cuda):
+    """The encoder's bool starts go to the kernel as they are: the call
+    launches one kernel, the sync kernel, and nothing else."""
+    arrays = [torch.from_numpy(a).to(cuda)
+              for a in sync_batch(7, 33, 32768, 2048)]
+    kw = sync_kwargs(32768, 2048)
+    psync.sync_records(*arrays, **kw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        psync.sync_records(*arrays, **kw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "sync_kernel" in kernels[0], kernels
+
+
+def _expand_equal(rec, n, out_cap):
+    before = _kernels.EXPAND.launches
+    got = pexpand.expand_records(rec, n, out_cap)
+    assert _kernels.EXPAND.launches == before + 1
+    _equal(got, pexpand.expand_records_plain(rec, n, out_cap))
+    return got
+
+
+@pytest.mark.parametrize("slots", [768, None])
+@pytest.mark.parametrize("out_cap", [1000, 32767])
+def test_expand_kernel_edge_rows(cuda, out_cap, slots):
+    """The generated rows (one record over many chunks, copy chains up to
+    chunk boundaries, the widest record windows at span 160, 768 slots,
+    status 2 and 3) as a batch of fewer rows than SMs and of more."""
+    rec, n = expand_batch(out_cap, out_cap, slots)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    reps = -(-(sms + 1) // len(n))
+    for r, m in ((rec, n), (np.tile(rec, (reps, 1)), np.tile(n, reps))):
+        got = _expand_equal(torch.from_numpy(r).to(cuda),
+                            torch.from_numpy(m).to(cuda), out_cap)
+        assert {0, 2, 3} <= set(got[1].tolist())
 
 
 @pytest.mark.parametrize("out_cap", [1000, 4096])
 def test_expand_kernel_status_rows(cuda, out_cap):
     s = 6144
     table = [
-        (_hand_fill([(0, 0, 81), (1, 1, 1)], s), 4000),
-        (_hand_fill([(k, 0, k % 251) for k in range(1999)]
+        (hand_fill([(0, 0, 81), (1, 1, 1)], s), 4000),
+        (hand_fill([(k, 0, k % 251) for k in range(1999)]
                     + [(1999, 1, 1999)], s, stride=1), 4096),
-        (_hand_fill([(0, 0, 65), (1, 1, 5), (9, 0, 66)], s), 100),
-        (_hand_fill([(3, 0, 65), (4, 1, 1)], s), 50),
-        (_hand_fill([(3, 0, 65), (4, 1, 9)], s), 50),
-        (_hand_fill([(0, 0, 65)], s), 0),
+        (hand_fill([(0, 0, 65), (1, 1, 5), (9, 0, 66)], s), 100),
+        (hand_fill([(3, 0, 65), (4, 1, 1)], s), 50),
+        (hand_fill([(3, 0, 65), (4, 1, 9)], s), 50),
+        (hand_fill([(0, 0, 65)], s), 0),
     ]
     rec = torch.from_numpy(np.stack([t[0] for t in table])).to(cuda)
     n = torch.tensor([t[1] for t in table], dtype=torch.int32, device=cuda)

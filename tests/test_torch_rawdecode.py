@@ -12,6 +12,8 @@ cases of tests/test_ops.py, a 2^18-byte output checked against
 ``BlockCodec.decode_batch_raw``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,40 @@ def test_make_decoder_equals_decode_batch(fuzz, multi):
                                                     jnp.asarray(lens))])
 
 
+def _entry_call(entry, mod, buf, lens, max_units):
+    """One decode of the fuzz batch through ``entry`` of ``mod`` (the
+    port's or JAX's ``ops.decode``) with ``max_units``: decode_batch and
+    make_decoder take the batch, decode_block its concatenated row."""
+    arr = torch.from_numpy if mod is decode else jnp.asarray
+    if entry == "decode_block":
+        out = mod.decode_block(arr(buf[30]), arr(lens[30:31])[0],
+                               out_cap=2048,
+                               max_units=max_units,
+                               multi_stream=True)
+        return [np.asarray(t) for t in out]
+    fn = (mod.make_decoder(buf.shape[1], 2048, max_units=max_units)
+          if entry == "make_decoder"
+          else functools.partial(mod.decode_batch, out_cap=2048,
+                                 max_units=max_units))
+    return [np.asarray(t) for t in fn(arr(buf), arr(lens))]
+
+
+@pytest.mark.parametrize("budget", ["none", "default", "cli"])
+@pytest.mark.parametrize("entry", ["decode_batch", "decode_block",
+                                   "make_decoder"])
+def test_max_units_matches_jax_bits_engine(fuzz, entry, budget):
+    """Each entry point takes JAX's ``max_units=`` (None, the default
+    budget, and the JAX CLI's ``in_cap * 2 + 16``) and gives what JAX's
+    bits engine gives with the same argument."""
+    buf, lens, _ = fuzz
+    max_units = {"none": None,
+                 "default": decode.default_max_units(2048),
+                 "cli": buf.shape[1] * 2 + 16}[budget]
+    got = _entry_call(entry, decode, buf, lens, max_units)
+    _assert_equal(got, _entry_call(entry, jdecode, buf, lens, max_units))
+    assert decode.default_max_units(2048) == jdecode.default_max_units(2048)
+
+
 def test_multi_stream_decode():
     a, b = b"first stream data " * 3, b"second one " * 5
     stream = ref.lzs_compress(a) + ref.lzs_compress(b)
@@ -201,10 +237,16 @@ def test_decode_block_at_max_out_cap_matches_reference():
 def test_out_cap_over_max_or_scan_engine_is_not_ported():
     buf = torch.zeros((1, 8), dtype=torch.uint8)
     n = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        decode.decode_batch(buf, n, out_cap=bitpar.MAX_OUT_CAP + 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        decode.decode_batch(buf, n, out_cap=64, engine="scan")
+    for max_units in (None, decode.default_max_units(64), 32):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+            decode.decode_batch(buf, n, out_cap=bitpar.MAX_OUT_CAP + 1,
+                                max_units=max_units)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+            decode.decode_batch(buf, n, out_cap=64, engine="scan",
+                                max_units=max_units)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+            decode.decode_block(buf[0], n[0], out_cap=64, engine="scan",
+                                max_units=max_units)
     with pytest.raises(ValueError):
         bitpar.decode_batch_bits(buf, n, out_cap=0)
 

@@ -6,7 +6,11 @@ Pallas kernel in interpret mode plus three sorts) and the port's
 ``_sync_records_batch`` (plain version on CPU tensors) get the same
 arrays and must agree exactly. One row is all literals with an end-bit
 offset that is a multiple of the span, where the last crossing record
-falls on the sentinel slot.
+falls on the sentinel slot. Generated unit rows at batch 33
+(test_torch_cases.sync_batch: nibble chains across the sync kernel's
+8192-position segments, offsets above 0xFFF, end_bits a multiple of the
+span, empty and short rows) at 1 to 32768 positions are held to JAX the
+same way.
 """
 
 import numpy as np
@@ -18,6 +22,8 @@ import jax.numpy as jnp
 
 from lzs_tpu.ops import encode as jenc
 from lzs_tpu_torch.ops import encode, psync
+
+from test_torch_cases import sync_batch
 
 NPOS = 1024
 
@@ -89,3 +95,20 @@ def test_encode_batch_sync_matches_jax(policy):
                                    span=288, policy=policy)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("npos,span", [(1, 128), (96, 96), (8193, 288),
+                                       (32768, 2048)])
+def test_sync_edge_rows_match_jax(npos, span):
+    starts, width, off, offs, end_bits, n = sync_batch(npos, 33, npos, span)
+    total = end_bits + 9
+    want = jax.jit(lambda tb, o, w, s, f, m: jenc._sync_records_batch(
+        tb, o, w, s, f, m, span))(total, offs, width, starts, off, n)
+    got = encode._sync_records_batch(
+        *(torch.from_numpy(a) for a in (total, offs, width, starts, off, n)),
+        span)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if npos >= 96:      # row 2's crossing at end_bits falls on the sentinel
+        assert int(got[2][2]) == end_bits[2] // span
+        assert int(got[0][2, -1]) == end_bits[2]
