@@ -19,9 +19,18 @@
 // Bound: walk_tables and walk_descent are memory-bound (tables: 4 bytes
 // read and 32 written per position; descent: 28 read and 1 written); the
 // doubling rounds are shared-memory reads between barriers. walk_entries
-// is latency-bound: one thread per row follows the chain through T
-// tiles, one dependent load per tile the chain enters. It is the simple
-// correct form, not a fast one.
+// needs only one exit per tile the chain enters, but which one depends on
+// the tile before: a thread that loads it from device memory waits a full
+// round trip per tile. Here the row's exits stream into shared memory
+// ahead of the walk instead: one CTA per row, whose first warp keeps a
+// ring of kRing chunks of kChunk tiles in flight (cp.async, 16 bytes per
+// copy where the table is 16-byte aligned, else 4, each lane's copies
+// signalling the chunk's "full" mbarrier as they land), while one thread
+// of the second warp follows the chain through each chunk in shared
+// memory and releases the chunk's slot through its "empty" mbarrier. The
+// walk costs one shared-memory load per tile it enters, the stream reads
+// the whole table once (the floor of this form: every exit, not only the
+// entered ones).
 //
 // All positions are int32 (chains reach N + the largest step).
 #include "scan.cuh"
@@ -32,7 +41,10 @@ constexpr int kTile = 128;
 constexpr int kLevels = 7;            // log2(kTile)
 constexpr int kTilesPerCta = 4;
 constexpr int kWalkThreads = kTile * kTilesPerCta;
-constexpr int kEntryThreads = 32;
+constexpr int kChunk = 16;            // tiles per ring slot (8 KiB)
+constexpr int kRing = 8;              // slots in flight (64 KiB)
+constexpr int kEntryThreads = 64;     // a copy warp and a walking warp
+constexpr size_t kRingBytes = sizeof(int) * kRing * kChunk * kTile;
 
 // step, exits: int32[R * 128] for R = B * T tiles (row-major (B, T, 128));
 // tabs: int32[7, R * 128].
@@ -58,22 +70,126 @@ walk_tables_kernel(const int* __restrict__ step, int* __restrict__ tabs,
   if (live) exits[at] = a;
 }
 
-// exits: int32[B, T, 128]; entries: int32[B, T]. One thread per row.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// Arrives on `bar` once every cp.async this thread issued so far has
+// landed (the arrival is one of the barrier's expected count).
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(int* smem, const int* gmem) {
+  if (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(smem)),
+                 "l"(gmem)
+                 : "memory");
+  }
+}
+
+// exits: int32[B, T, 128]; entries: int32[B, T]. One CTA per row: warp 0
+// copies chunk k of the row's exits into ring slot k % kRing once the walk
+// has released that slot's previous chunk; thread 32 walks.
+template <int kCopyBytes>
 __global__ void __launch_bounds__(kEntryThreads)
 walk_entries_kernel(const int* __restrict__ exits, int* __restrict__ entries,
-                    int B, int T) {
-  const int b = blockIdx.x * kEntryThreads + threadIdx.x;
-  if (b >= B) return;
-  const int* ex = exits + static_cast<int64_t>(b) * T * kTile;
-  int* ent = entries + static_cast<int64_t>(b) * T;
-  int c = 0;
-  for (int t = 0; t < T; ++t) {
-    ent[t] = c;
-    const int b0 = t * kTile;
-    if (c >= b0 && c < b0 + kTile) {
-      c = ex[static_cast<int64_t>(t) * kTile + c - b0];
+                    int T) {
+  extern __shared__ __align__(16) int ring[];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  const int64_t row = blockIdx.x;
+  const int* ex = exits + row * T * kTile;
+  const int nchunks = (T + kChunk - 1) / kChunk;
+  if (threadIdx.x < kRing) {
+    mbar_init(&full[threadIdx.x], 32);   // one arrival per copying lane
+    mbar_init(&empty[threadIdx.x], 1);   // the walker's release
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    constexpr int kStep = kCopyBytes / 4;            // ints per copy
+    for (int k = 0; k < nchunks; ++k) {
+      const int slot = k % kRing;
+      if (k >= kRing) mbar_wait(&empty[slot], (k / kRing - 1) & 1);
+      const int t0 = k * kChunk;
+      const int len = min(kChunk, T - t0) * kTile;
+      const int* src = ex + static_cast<int64_t>(t0) * kTile;
+      int* dst = ring + slot * kChunk * kTile;
+      for (int i = threadIdx.x * kStep; i < len; i += 32 * kStep)
+        cp_async<kCopyBytes>(dst + i, src + i);
+      mbar_arrive_copies(&full[slot]);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else if (threadIdx.x == 32) {
+    int* ent = entries + row * T;
+    int c = 0;
+    for (int k = 0; k < nchunks; ++k) {
+      const int slot = k % kRing;
+      const int t0 = k * kChunk;
+      const int t1 = min(T, t0 + kChunk);
+      mbar_wait(&full[slot], (k / kRing) & 1);
+      // ring[p + shift] is the exit of position p of this chunk's tiles
+      const int shift = (slot * kChunk - t0) * kTile;
+      for (int t = t0; t < t1; ++t) {
+        ent[t] = c;
+        // c in tile t, as one unsigned compare (a c < 0 wraps above it)
+        if (static_cast<unsigned>(c) - static_cast<unsigned>(t * kTile) <
+            static_cast<unsigned>(kTile))
+          c = ring[c + shift];
+      }
+      mbar_arrive(&empty[slot]);
     }
   }
+}
+
+template <int kCopyBytes>
+cudaError_t launch_entries(const int* exits, int* entries, int B, int T,
+                           cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      walk_entries_kernel<kCopyBytes>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kRingBytes));
+  if (err != cudaSuccess) return err;
+  walk_entries_kernel<kCopyBytes><<<B, kEntryThreads, kRingBytes, stream>>>(
+      exits, entries, T);
+  return cudaGetLastError();
 }
 
 // tabs: int32[7, B * T * 128]; entries: int32[B * T]; n: int32[B];
@@ -128,11 +244,11 @@ LZS_API int lzs_walk_tables(const int* step, int* tabs, int* exits, int B,
 LZS_API int lzs_walk_entries(const int* exits, int* entries, int B, int T,
                              int device, void* stream) {
   const lzs::DeviceGuard guard(device);
-  walk_entries_kernel<<<(B + kEntryThreads - 1) / kEntryThreads,
-                        kEntryThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      exits, entries, B, T);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a row is T * 512 bytes, so every row is aligned where the table is
+  const bool vec = (reinterpret_cast<uintptr_t>(exits) & 15) == 0;
+  return static_cast<int>(vec ? launch_entries<16>(exits, entries, B, T, s)
+                              : launch_entries<4>(exits, entries, B, T, s));
 }
 
 LZS_API int lzs_walk_descent(const int* tabs, const int* entries,

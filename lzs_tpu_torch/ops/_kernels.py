@@ -21,6 +21,7 @@ build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -44,7 +45,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "lzs_cummax_rows": [_P, _P, _I, _I],
     "lzs_rcummin_rows": [_P, _P, _I, _I],
-    "lzs_cumsum_rows": [_P, _P, _I, _I],
+    "lzs_cumsum_rows": [_P, _P, _I, _I, _I, _P, _I],
     "lzs_rank_mask_rows": [_P, _P, _I, _I],
     "lzs_gather_rows": [_P, _P, _P, _I, _I, _I],
     "lzs_perk_level": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
@@ -251,15 +252,40 @@ def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_STREAM_WORDS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def stream_words(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` int64 words that a kernel keeps from one launch
+    to the next (the chained cumsum's epoch and status words): zeroed when
+    made, one buffer per device and stream, grown (made anew) as needed.
+    Launches on one stream run one after another, so they share it. (A
+    CUDA graph that captures such a launch keeps its capture stream's
+    buffer: replay it on that stream.)"""
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    words = _STREAM_WORDS.get(key)
+    if words is None or words.numel() < count:
+        have = 0 if words is None else words.numel()
+        words = torch.zeros(max(count, 2 * have, 1024), dtype=torch.int64,
+                            device=device)
+        _STREAM_WORDS[key] = words
+    return words
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (use the plain version);
     False when every one lies on one CUDA device (launch the kernel).
     Anything else raises: a kernel never falls back."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(
-            f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise ValueError("tensors on several devices: " + str(sorted(
+            {str(t.device) for t in tensors})))
     if dev.type == "cpu":
         return True
     if dev.type == "cuda":

@@ -24,6 +24,7 @@ from . import _kernels
 
 _BIG = 0x3FFFFFFF
 MAX_NPOS = 1 << 15        # the match search packs positions into 15 bits
+SUM_TILES = (4096, 8192)  # cumsum kernel: 256 threads x 16 or x 32
 
 
 def check_npos(npos: int) -> None:
@@ -64,18 +65,33 @@ def rcummin_rows(v: torch.Tensor) -> torch.Tensor:
     return _kernels.launch_rows(_kernels.RCUMMIN, {"v": v})
 
 
+def cumsum_tile(b: int, npos: int, sms: int) -> int:
+    """Elements per CTA of the cumsum kernel for B rows of N on a card of
+    ``sms`` SMs: SUM_TILES[1] where the rows make at least 4 such tiles
+    per SM, else SUM_TILES[0], so that few rows still spread over the
+    card."""
+    big = SUM_TILES[1]
+    return big if b * -(-npos // big) >= 4 * sms else SUM_TILES[0]
+
+
 def cumsum_rows_wide(v: torch.Tensor, tile: int = 8192) -> torch.Tensor:
     """Row-wise inclusive prefix sum of int32[B, N], wrapping like int32.
 
     ``tile`` is the JAX signature's: the TPU kernel scans ``tile``-wide
-    pieces because a row must fit VMEM. The kernel here carries the sum
-    across its tiles in one launch, so any N works and ``tile`` is not
-    read.
+    pieces because a row must fit VMEM. The kernel here chains the sums of
+    its tiles (``cumsum_tile`` wide, one CTA each) in one launch, so any N
+    works and ``tile`` is not read.
     """
     del tile
     if _kernels.on_cpu(v):
         return cumsum_rows_plain(v)
-    return _kernels.launch_rows(_kernels.CUMSUM, {"v": v})
+    b, npos = v.shape if v.dim() == 2 else (0, 0)
+    dev = v.device
+    tile = cumsum_tile(b, npos, _kernels.sm_count(dev.index))
+    # the kernel's epoch word, then one status word per tile
+    words = _kernels.stream_words(dev, 1 + b * -(-npos // tile))
+    return _kernels.launch_rows(_kernels.CUMSUM, {"v": v}, tile,
+                                words.data_ptr(), words.numel() - 1)
 
 
 def rank_mask(mask: torch.Tensor) -> torch.Tensor:

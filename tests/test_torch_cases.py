@@ -1,11 +1,19 @@
-"""Seeded edge inputs for the sync (K16) and expand (K17) functions.
+"""Seeded edge inputs for the row cumsum (K9), the token walk's entries
+(K12), sync (K16) and expand (K17).
 
+tests/test_torch_scan.py, tests/test_torch_walk.py,
 tests/test_torch_sync.py and tests/test_torch_expand.py hold the port's
-plain versions to the JAX package on these inputs on the CPU;
-tests/test_torch_gpu.py holds the kernels to the plain versions on them
-on the card. The module imports no jax, so the GPU machine can import it;
-its own tests check that the inputs have the properties they are made
-for.
+plain versions to the JAX package (or, for the walk's entries, to a numpy
+recurrence) on these inputs on the CPU; tests/test_torch_gpu.py holds the
+kernels to the plain versions on them on the card. The module imports no
+jax, so the GPU machine can import it; its own tests check that the
+inputs have the properties they are made for.
+
+Cumsum rows mix values near +-2^31 with small ones, so their sums wrap
+many times in every piece a kernel splits a row into. Walk rows are token
+steps (0 and -1 count as 1) whose chains enter most tiles, skip whole
+runs of 16 and of 128 tiles (the entry kernel's ring slot and its ring)
+and, in row 0, leave the row with a step of 2^30.
 
 Sync rows are emission-unit rows of a token sequence: a head per token
 (9 bits for a literal, 2 + 7 or 11 + 2 or 4 for a copy), extension
@@ -30,6 +38,62 @@ from lzs_tpu_torch.ops import decode2, encode
 # crosses the next 8192-position boundary (each CTA of the sync kernel
 # takes 8192 positions)
 CHAINS = ((8000, 3000), (16300, 1600), (24560, 800))
+
+
+def cumsum_rows(seed, b, w):
+    """int32[b, w]: a third near 2^31 - 1, a third near -2^31, the rest
+    small (negative ones too)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-1000, 1000, (b, w), dtype=np.int64)
+    pick = rng.random((b, w))
+    v[pick < 1 / 3] += (1 << 31) - 1000
+    v[pick > 2 / 3] -= (1 << 31) - 1000
+    return v.astype(np.int32)
+
+
+#: tiles of the walk skipped by a long step: past one ring slot of the
+#: entry kernel (16 tiles) and past its whole ring (128 tiles)
+WALK_SKIPS = (20, 140)
+
+
+def _funnel(row, at, step):
+    """Route the chain through position ``at`` (its steps are at most 30,
+    so it lands in the 30 positions before) and give ``at`` this step."""
+    lo = max(at - 30, 0)
+    row[lo:at] = at - np.arange(lo, at)
+    row[at] = step
+
+
+def walk_steps(seed, b, ntiles):
+    """int32[b, ntiles * 128] token steps: short steps (-1 to 30); in odd
+    rows a step over WALK_SKIPS[1] tiles in the row's first third and one
+    over WALK_SKIPS[0] in its last; in row 0 a step of 2^30 in the middle,
+    so its chain ends past the row. The chains take every long step."""
+    rng = np.random.default_rng(seed)
+    npos = ntiles * 128
+    step = rng.integers(-1, 31, (b, npos))
+    third = max(npos // 3, 1)
+    for r in range(1, b, 2):
+        _funnel(step[r], int(rng.integers(0, third)),
+                WALK_SKIPS[1] * 128 + int(rng.integers(0, 128)))
+        _funnel(step[r], int(rng.integers(npos - third, npos)),
+                WALK_SKIPS[0] * 128 + int(rng.integers(0, 128)))
+    _funnel(step[0], npos // 2, 1 << 30)
+    return step.astype(np.int32)
+
+
+def walk_entries_numpy(exits):
+    """The entry rule, one tile at a time: the entry of tile t is the
+    chain position before it; a chain inside tile t moves to its exit."""
+    b, ntiles, tile = exits.shape
+    entries = np.zeros((b, ntiles), np.int32)
+    for r in range(b):
+        c = 0
+        for t in range(ntiles):
+            entries[r, t] = c
+            if t * tile <= c < (t + 1) * tile:
+                c = int(exits[r, t, c - t * tile])
+    return entries
 
 
 def sync_row(rng, npos, n, *, chains=(), wide_off=False, end_span=None):
@@ -199,6 +263,33 @@ def expand_batch(seed, out_cap, s=None):
                                                 np.int32)]))
         ns.append(min(n, out_cap))
     return np.stack(fills), np.array(ns, np.int32)
+
+
+def test_cumsum_rows_wrap():
+    v = cumsum_rows(0, 4, 1000).astype(np.int64)
+    assert v.max() > (1 << 31) - 2000 and v.min() < -(1 << 31) + 2000
+    # the exact running sums leave int32's range many times in every row
+    wraps = np.diff(np.floor_divide(np.cumsum(v, axis=1) + (1 << 31),
+                                    1 << 32), axis=1)
+    assert ((wraps != 0).sum(axis=1) > 100).all()
+
+
+@pytest.mark.parametrize("b,ntiles", [(3, 1), (4, 600)])
+def test_walk_steps_properties(b, ntiles):
+    step = walk_steps(ntiles, b, ntiles)
+    assert step.shape == (b, ntiles * 128) and step.dtype == np.int32
+    assert (step <= 0).any() and step[0].max() == 1 << 30
+    for skip in WALK_SKIPS:
+        assert (step[1] // 128 == skip).any()
+
+
+def test_walk_entries_numpy_rule():
+    """A chain through every tile, then one that leaves the row at once
+    and passes its position through every later tile."""
+    exits = np.arange(128 * 3, dtype=np.int32).reshape(1, 3, 128) + 128
+    assert walk_entries_numpy(exits).tolist() == [[0, 128, 256]]
+    exits[0, 0, 0] = 1 << 30
+    assert walk_entries_numpy(exits).tolist() == [[0, 1 << 30, 1 << 30]]
 
 
 @pytest.mark.parametrize("npos,span", [(1, 128), (96, 96), (8193, 288),

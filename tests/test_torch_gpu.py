@@ -18,7 +18,10 @@ from the codec's own encode on the card; corrupt records, one lane,
 unaligned and odd byte rows); the sync and expand kernels also take the
 seeded edge rows of tests/test_torch_cases.py (sync: 1 to 32768
 positions over one to four CTAs of a cluster, 16-aligned and unaligned
-rows; expand: fewer rows than SMs and more); the codec's
+rows; expand: fewer rows than SMs and more; the row cumsum: both tile
+forms, values that wrap, 1 to 1024 rows up to 2^20 wide, and a CUDA
+graph replay; the walk's entries: 1 to 300 rows of 1 to 6272 tiles,
+skips past a ring slot and a ring, chains past the row); the codec's
 bytes (also a 256-block container), the probe's run lengths and the raw
 decoder's output on the card are compared with the CPU's.
 """
@@ -32,7 +35,8 @@ from lzs_tpu_torch.ops import (_kernels, decode, decode2, encode, pcand,
                                pexpand, pext, pgather, ppack, psync, pwalk,
                                sortmatch)
 
-from test_torch_cases import expand_batch, hand_fill, sync_batch, sync_kwargs
+from test_torch_cases import (WALK_SKIPS, cumsum_rows, expand_batch,
+                              hand_fill, sync_batch, sync_kwargs, walk_steps)
 
 pytestmark = pytest.mark.gpu
 
@@ -80,6 +84,79 @@ def test_cumsum_kernel(cuda, b, w):
     _equal([got], [pext.cumsum_rows_plain(v)])
     assert got.dtype == torch.int32
     assert _kernels.CUMSUM.launches == before + 1
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,w", [
+    (1, 1), (1, 1025), (2, 16401), (4, 200704), (1, 89216), (1, 1 << 20),
+    (33, 33792), (131, 16417), (133, 1025), (256, 33792), (1024, 1025),
+    (1024, 75776)])
+def test_cumsum_kernel_forms(cuda, b, w, shift):
+    """Values near +-2^31 (every tile's sum wraps), bitwise equal to
+    torch.cumsum, in both tile forms: 4096 for few rows (1 to 133 here, a
+    row over up to 256 tiles, so look-backs past 32 tiles), 8192 where the
+    rows make 4 tiles per SM (256 x 33792, 1024 rows); ragged ends (16401,
+    16417, 1025, 1); rows 4 bytes past a 16-byte boundary (shift). Each
+    call is one launch, moves the epoch in its stream's words on by one
+    and leaves no CTA counted there."""
+    v = torch.from_numpy(cumsum_rows(b * w, b, w)).to(cuda)
+    if shift:
+        v = _misaligned(v)
+    sms = _kernels.sm_count(cuda.index)
+    wide = b * -(-w // pext.SUM_TILES[1]) >= 4 * sms
+    assert pext.cumsum_tile(b, w, sms) == pext.SUM_TILES[wide]
+    pext.cumsum_rows_wide(v)                 # the words at their size
+    epoch = int(_kernels.stream_words(cuda, 1)[0])
+    before = _kernels.CUMSUM.launches
+    got = pext.cumsum_rows_wide(v)
+    assert _kernels.CUMSUM.launches == before + 1
+    _equal([got], [pext.cumsum_rows_plain(v)])
+    assert int(_kernels.stream_words(cuda, 1)[0]) == epoch + 1
+
+
+def test_cumsum_epoch_wrap(cuda):
+    """The launch of the last 30-bit tag clears the status words and
+    starts the epoch over; the sums stay exact on both sides of it."""
+    v = torch.from_numpy(cumsum_rows(7, 4, 200704)).to(cuda)
+    want = pext.cumsum_rows_plain(v)
+    _equal([pext.cumsum_rows_wide(v)], [want])
+    words = _kernels.stream_words(cuda, 1)
+    words[0] = (1 << 30) - 2                 # the next tag is 2^30 - 1
+    _equal([pext.cumsum_rows_wide(v)], [want])
+    assert int(words[0]) == 0 and not words[1:].any()
+    _equal([pext.cumsum_rows_wide(v)], [want])
+    assert int(words[0]) == 1 and words[1:].any()
+
+
+def test_cumsum_graph_replays(cuda):
+    """A CUDA graph that captured the chained cumsum replays it exactly on
+    new inputs (the launch's tag comes from the device-side epoch)."""
+    v = torch.from_numpy(cumsum_rows(3, 4, 200704)).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pext.cumsum_rows_wide(v)                 # the stream's words
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = pext.cumsum_rows_wide(v)
+    for seed in (4, 5, 6):
+        v.copy_(torch.from_numpy(cumsum_rows(seed, 4, 200704)))
+        graph.replay()
+        torch.cuda.synchronize()
+        _equal([out], [pext.cumsum_rows_plain(v)])
+
+
+def test_cumsum_keeps_its_words(cuda):
+    """The 2^18 slot row: calls after the first reuse their stream's words
+    as they are (nothing allocates or clears them per call)."""
+    v = torch.from_numpy(cumsum_rows(1, 1, 89216)).to(cuda)
+    want = pext.cumsum_rows_plain(v)
+    _equal([pext.cumsum_rows_wide(v)], [want])
+    words = _kernels.stream_words(cuda, 1)
+    for _ in range(3):
+        _equal([pext.cumsum_rows_wide(v)], [want])
+    assert _kernels.stream_words(cuda, 1) is words
 
 
 def _rank_inputs(seed, b, w, dev):
@@ -324,6 +401,30 @@ def test_walk_kernels(cuda, b, npos, maxstep):
            [pwalk.walk_descent_plain(tabs, entries, nt, npos)])
     want = np.stack([_host_walk(step[i], n[i]) for i in range(b)])
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,ntiles", [(1, 6272), (300, 256), (3, 1),
+                                      (33, 256), (4, 600), (2, 2369),
+                                      (5, 1000)])
+def test_walk_entries_kernel(cuda, b, ntiles, shift):
+    """The seeded rows of tests/test_torch_walk.py: chains that skip a
+    ring slot (16 tiles) and a whole ring (128 tiles), leave the row with
+    a step of 2^30; the 2^18 row (1 x 6272 tiles), more rows than SMs, one
+    tile, tile counts that are no multiple of a slot; exits 4 bytes past a
+    16-byte boundary (shift: 4-byte copies)."""
+    step = torch.from_numpy(walk_steps(ntiles, b, ntiles)).to(cuda)
+    _, exits = pwalk.walk_tables_plain(step)
+    if shift:
+        exits = _misaligned(exits)
+    want = pwalk.walk_entries_plain(exits)
+    before = _kernels.WALK_ENTRIES.launches
+    got = pwalk.walk_entries(exits)
+    assert _kernels.WALK_ENTRIES.launches == before + 1
+    _equal([got], [want])
+    assert int(got[0, -1]) >= 1 << 30 or ntiles == 1
+    if b > 1 and ntiles >= 500:
+        assert int((got[1, 1:] - got[1, :-1]).max()) >= max(WALK_SKIPS) * 128
 
 
 def _long_copy_fill(s, out_cap):

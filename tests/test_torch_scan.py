@@ -27,6 +27,7 @@ from lzs_tpu.ops import sortmatch as jsm
 from lzs_tpu_torch import spec as tspec
 from lzs_tpu_torch.ops import pext, sortmatch
 
+from test_torch_cases import cumsum_rows
 from test_torch_pcand import mixed_blocks
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -62,6 +63,32 @@ def test_cumsum_rows_wide_matches_jax_pext(w, tile):
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jpext.cumsum_rows_wide(jnp.asarray(v),
                                                       tile=tile)))
+
+
+@pytest.mark.parametrize("b,w,tile", [(32, 4096, 1024), (33, 1024, 8192),
+                                      (40, 2048, 512)])
+def test_cumsum_rows_wide_wraps_like_jax_pext(b, w, tile):
+    """Batch >= 32 (F4), values near +-2^31: the sums wrap many times in
+    every row and every JAX tile (the rows the card's tests take too)."""
+    v = cumsum_rows(b + w + tile, b, w)
+    got = pext.cumsum_rows_wide(torch.from_numpy(v), tile=tile)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jpext.cumsum_rows_wide(jnp.asarray(v),
+                                                      tile=tile)))
+    assert (got.numpy() < 0).any() and (got.numpy() > 0).any()
+
+
+@pytest.mark.parametrize("b,npos,tile", [
+    (1, 1, 4096), (1, 89216, 4096), (4, 200704, 4096), (1, 1 << 20, 4096),
+    (33, 33792, 4096), (106, 33792, 8192), (105, 33792, 4096),
+    (256, 33792, 8192), (1024, 75776, 8192), (1024, 1025, 8192),
+    (0, 5, 4096)])
+def test_cumsum_tile(b, npos, tile):
+    """The paths' shapes at 132 SMs: the wide tile where the rows make at
+    least 4 of them per SM (528: 106 x 5 does, 105 x 5 does not), the
+    narrow one (twice the CTAs) for the 2^18 decode_block's few rows."""
+    assert pext.cumsum_tile(b, npos, 132) == tile
+    assert tile in pext.SUM_TILES
 
 
 def _ext_h(x, n, packed, off, cap=12):

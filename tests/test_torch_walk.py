@@ -17,6 +17,8 @@ import jax.numpy as jnp
 from lzs_tpu.ops import pwalk as jpwalk
 from lzs_tpu_torch.ops import pwalk, tokenize
 
+from test_torch_cases import WALK_SKIPS, walk_entries_numpy, walk_steps
+
 
 def host_walk(step, n):
     starts = np.zeros(step.shape[0], bool)
@@ -83,6 +85,22 @@ def test_walk_ragged_width(npos):
     np.testing.assert_array_equal(
         got, np.stack([host_walk(step[i], n[i]) for i in range(3)]))
     assert got[1].all()
+
+
+@pytest.mark.parametrize("b,ntiles", [(3, 1), (33, 256), (4, 600),
+                                      (1, 6272)])
+def test_walk_entries_match_numpy_recurrence(b, ntiles):
+    """The seeded rows of the card's tests: chains that skip a ring slot's
+    and a ring's worth of tiles (odd rows) and leave the row (row 0)."""
+    step = torch.from_numpy(walk_steps(ntiles, b, ntiles))
+    _, exits = pwalk.walk_tables(step)
+    got = pwalk.walk_entries(exits)
+    want = walk_entries_numpy(exits.numpy())
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0, -1] >= 1 << 30 or ntiles == 1
+    if ntiles >= 500 and b > 1:
+        jumps = np.diff(want[1]) // 128
+        assert jumps.max() >= max(WALK_SKIPS)
 
 
 def test_stages_chained_equal_walk_starts():
