@@ -1,8 +1,9 @@
 // Block-wide scans and the launch plumbing shared by the port's kernels.
 //
-// Every kernel of lzs_tpu_torch walks one block row with one CTA: the row
-// is cut into tiles of blockDim.x elements, each tile is scanned across
-// the CTA (warp shuffles, then one warp over the warp totals), and a
+// row_scan walks one block row with one CTA (K6 rank_mask in rowscan.cu,
+// the match extension's fused scans in extend.cu): the row is cut into
+// tiles of blockDim.x elements, each tile is scanned across the CTA
+// (block_scan: warp shuffles, then one warp over the warp totals), and a
 // carry threads the tiles together. blockDim.x is a multiple of 32, at
 // most 1024.
 #pragma once

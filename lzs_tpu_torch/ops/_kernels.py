@@ -43,8 +43,8 @@ _I = ctypes.c_int
 # C entry points: symbol -> argument types (the device index and the
 # stream are the last two arguments of every one).
 _SIGNATURES = {
-    "lzs_cummax_rows": [_P, _P, _I, _I],
-    "lzs_rcummin_rows": [_P, _P, _I, _I],
+    "lzs_cummax_rows": [_P, _P, _I, _I, _I, _P, _I],
+    "lzs_rcummin_rows": [_P, _P, _I, _I, _I, _P, _I],
     "lzs_cumsum_rows": [_P, _P, _I, _I, _I, _P, _I],
     "lzs_rank_mask_rows": [_P, _P, _I, _I],
     "lzs_gather_rows": [_P, _P, _P, _I, _I, _I],
@@ -263,7 +263,7 @@ _STREAM_WORDS: dict[tuple[int, int], torch.Tensor] = {}
 
 def stream_words(device: torch.device, count: int) -> torch.Tensor:
     """At least ``count`` int64 words that a kernel keeps from one launch
-    to the next (the chained cumsum's epoch and status words): zeroed when
+    to the next (the chained row scans' epoch and status words): zeroed when
     made, one buffer per device and stream, grown (made anew) as needed.
     Launches on one stream run one after another, so they share it. (A
     CUDA graph that captures such a launch keeps its capture stream's

@@ -7,7 +7,10 @@ Port of six ``lzs_tpu.ops.pext`` roll-scan kernels: ``cummax_rows``
 ``_rank_kernel``) launch ``csrc/rowscan.cu`` on a CUDA tensor;
 ``ext_breaks`` (K4, ``_break_kernel``) and ``ext_fold`` (K5,
 ``_fold_kernel``) launch ``csrc/extend.cu``. On a CPU tensor each runs
-the plain version beside it.
+the plain version beside it. K7, K8 and K9 are one chained scan (a CTA
+per ``cumsum_tile``-wide tile, the tiles' partial results chained through
+status words in one launch), instantiated as max forward, min backward
+and sum forward.
 
 Callers: the emission-unit ownership scans (tokenize), the run-end
 pinning of the match extension and its probe tier (sortmatch:
@@ -24,7 +27,7 @@ from . import _kernels
 
 _BIG = 0x3FFFFFFF
 MAX_NPOS = 1 << 15        # the match search packs positions into 15 bits
-SUM_TILES = (4096, 8192)  # cumsum kernel: 256 threads x 16 or x 32
+SUM_TILES = (4096, 8192)  # chained scans: 256 threads x 16 or x 32
 
 
 def check_npos(npos: int) -> None:
@@ -51,25 +54,37 @@ def rank_mask_plain(mask: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(m, dim=1, dtype=torch.int32) - m
 
 
+def _chain(kernel: _kernels.Kernel, v: torch.Tensor) -> torch.Tensor:
+    """Launch one of the chained row scans (K7-K9) on int32[B, N] ``v``:
+    ``cumsum_tile`` elements per CTA, status words from ``stream_words``."""
+    b, npos = v.shape if v.dim() == 2 else (0, 0)
+    dev = v.device
+    tile = cumsum_tile(b, npos, _kernels.sm_count(dev.index))
+    # the kernels' epoch word, then one status word per tile
+    words = _kernels.stream_words(dev, 1 + b * -(-npos // tile))
+    return _kernels.launch_rows(kernel, {"v": v}, tile, words.data_ptr(),
+                                words.numel() - 1)
+
+
 def cummax_rows(v: torch.Tensor) -> torch.Tensor:
     """Row-wise prefix cumulative max of int32[B, N]."""
     if _kernels.on_cpu(v):
         return cummax_rows_plain(v)
-    return _kernels.launch_rows(_kernels.CUMMAX, {"v": v})
+    return _chain(_kernels.CUMMAX, v)
 
 
 def rcummin_rows(v: torch.Tensor) -> torch.Tensor:
     """Row-wise suffix cumulative min of int32[B, N]."""
     if _kernels.on_cpu(v):
         return rcummin_rows_plain(v)
-    return _kernels.launch_rows(_kernels.RCUMMIN, {"v": v})
+    return _chain(_kernels.RCUMMIN, v)
 
 
 def cumsum_tile(b: int, npos: int, sms: int) -> int:
-    """Elements per CTA of the cumsum kernel for B rows of N on a card of
-    ``sms`` SMs: SUM_TILES[1] where the rows make at least 4 such tiles
-    per SM, else SUM_TILES[0], so that few rows still spread over the
-    card."""
+    """Elements per CTA of the chained row scans (K7-K9) for B rows of N
+    on a card of ``sms`` SMs: SUM_TILES[1] where the rows make at least 4
+    such tiles per SM, else SUM_TILES[0], so that few rows still spread
+    over the card."""
     big = SUM_TILES[1]
     return big if b * -(-npos // big) >= 4 * sms else SUM_TILES[0]
 
@@ -85,13 +100,7 @@ def cumsum_rows_wide(v: torch.Tensor, tile: int = 8192) -> torch.Tensor:
     del tile
     if _kernels.on_cpu(v):
         return cumsum_rows_plain(v)
-    b, npos = v.shape if v.dim() == 2 else (0, 0)
-    dev = v.device
-    tile = cumsum_tile(b, npos, _kernels.sm_count(dev.index))
-    # the kernel's epoch word, then one status word per tile
-    words = _kernels.stream_words(dev, 1 + b * -(-npos // tile))
-    return _kernels.launch_rows(_kernels.CUMSUM, {"v": v}, tile,
-                                words.data_ptr(), words.numel() - 1)
+    return _chain(_kernels.CUMSUM, v)
 
 
 def rank_mask(mask: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,9 @@ this script into its scripts/):
     python3 scripts/kernel_bench.py [--kernels rowscan_cumsum walk_entries]
         [--reps 50] [--plain-reps 3] [--flush-mib 256]
 
+(the kernels default to the chained row scans: rowscan_rcummin,
+rowscan_cummax and rowscan_cumsum).
+
 Prints the card's name and power limit, then one JSON line per shape.
 Imports nothing of jax.
 """
@@ -159,7 +162,8 @@ def record(kernels: list[str], data: bytes, device: torch.device) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", nargs="+",
-                    default=["rowscan_cumsum", "walk_entries"])
+                    default=["rowscan_rcummin", "rowscan_cummax",
+                             "rowscan_cumsum"])
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--plain-reps", type=int, default=3)
     ap.add_argument("--flush-mib", type=int, default=256)

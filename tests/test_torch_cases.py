@@ -1,4 +1,4 @@
-"""Seeded edge inputs for the row cumsum (K9), the token walk's entries
+"""Seeded edge inputs for the row scans (K7-K9), the token walk's entries
 (K12), sync (K16) and expand (K17).
 
 tests/test_torch_scan.py, tests/test_torch_walk.py,
@@ -10,7 +10,11 @@ jax, so the GPU machine can import it; its own tests check that the
 inputs have the properties they are made for.
 
 Cumsum rows mix values near +-2^31 with small ones, so their sums wrap
-many times in every piece a kernel splits a row into. Walk rows are token
+many times in every piece a kernel splits a row into. Min/max rows rise,
+fall or are noise over all of int32, with INT_MIN, INT_MAX and the
+callers' sentinels -1 and 0x3FFFFFFF in every row: a rising row's running
+max and suffix min change in every piece, a falling row's come from its
+far end, across every piece. Walk rows are token
 steps (0 and -1 count as 1) whose chains enter most tiles, skip whole
 runs of 16 and of 128 tiles (the entry kernel's ring slot and its ring)
 and, in row 0, leave the row with a step of 2^30.
@@ -48,6 +52,30 @@ def cumsum_rows(seed, b, w):
     pick = rng.random((b, w))
     v[pick < 1 / 3] += (1 << 31) - 1000
     v[pick > 2 / 3] -= (1 << 31) - 1000
+    return v.astype(np.int32)
+
+
+I32 = np.iinfo(np.int32)
+
+
+def minmax_rows(seed, b, w):
+    """int32[b, w] for the running max (K8) and the suffix min (K7): each
+    row holds random int32 values, INT_MIN, INT_MAX, and one -1 and one
+    0x3FFFFFFF per 4096 positions. Rows rise (row % 3 == 0: sorted, then
+    shuffled within windows of 64 positions), fall (1: a rising row
+    reversed) or are shuffled whole (2)."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(I32.min, I32.max, (b, w), dtype=np.int64,
+                     endpoint=True)
+    k = -(-w // 4096)
+    special = [I32.min, I32.max] + [-1] * k + [0x3FFFFFFF] * k
+    v[:, :min(w, len(special))] = special[:w]
+    v = np.sort(v, axis=1)
+    window = np.argsort(np.arange(w) // 64 + rng.random((b, w)), axis=1)
+    v = np.take_along_axis(v, window, axis=1)
+    kind = np.arange(b) % 3
+    v[kind == 1] = v[kind == 1, ::-1]
+    v[kind == 2] = rng.permuted(v[kind == 2], axis=1)
     return v.astype(np.int32)
 
 
@@ -272,6 +300,23 @@ def test_cumsum_rows_wrap():
     wraps = np.diff(np.floor_divide(np.cumsum(v, axis=1) + (1 << 31),
                                     1 << 32), axis=1)
     assert ((wraps != 0).sum(axis=1) > 100).all()
+
+
+@pytest.mark.parametrize("w", [8192, 200704])
+def test_minmax_rows_properties(w):
+    v = minmax_rows(w, 6, w)
+    for value in (I32.min, I32.max, -1, 0x3FFFFFFF):
+        assert (v == value).any(axis=1).all()
+    # a rising row's scans change in every 4096-wide piece; a falling
+    # row's come from its far end
+    for rising in v[0::3]:
+        for scan in (np.maximum.accumulate(rising),
+                     np.minimum.accumulate(rising[::-1])[::-1]):
+            pieces = np.unique(np.flatnonzero(np.diff(scan)) // 4096)
+            assert len(pieces) == w // 4096
+    for falling in v[1::3]:
+        assert (np.maximum.accumulate(falling)[64:] == I32.max).all()
+        assert (np.minimum.accumulate(falling[::-1])[64:] == I32.min).all()
 
 
 @pytest.mark.parametrize("b,ntiles", [(3, 1), (4, 600)])

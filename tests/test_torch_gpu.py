@@ -20,7 +20,9 @@ seeded edge rows of tests/test_torch_cases.py (sync: 1 to 32768
 positions over one to four CTAs of a cluster, 16-aligned and unaligned
 rows; expand: fewer rows than SMs and more; the row cumsum: both tile
 forms, values that wrap, 1 to 1024 rows up to 2^20 wide, and a CUDA
-graph replay; the walk's entries: 1 to 300 rows of 1 to 6272 tiles,
+graph replay; the row max and suffix min on rows at INT_MIN and INT_MAX
+in the same forms, and the three chained scans interleaved on one
+stream; the walk's entries: 1 to 300 rows of 1 to 6272 tiles,
 skips past a ring slot and a ring, chains past the row); the codec's
 bytes (also a 256-block container), the probe's run lengths and the raw
 decoder's output on the card are compared with the CPU's.
@@ -36,7 +38,8 @@ from lzs_tpu_torch.ops import (_kernels, decode, decode2, encode, pcand,
                                sortmatch)
 
 from test_torch_cases import (WALK_SKIPS, cumsum_rows, expand_batch,
-                              hand_fill, sync_batch, sync_kwargs, walk_steps)
+                              hand_fill, minmax_rows, sync_batch, sync_kwargs,
+                              walk_steps)
 
 pytestmark = pytest.mark.gpu
 
@@ -86,6 +89,44 @@ def test_cumsum_kernel(cuda, b, w):
     assert _kernels.CUMSUM.launches == before + 1
 
 
+#: the chained row scans (K7-K9): wrapper, plain version, kernel, and the
+#: seeded rows (tests/test_torch_cases.py) that each is tested on
+SCANS = {
+    "rcummin": (pext.rcummin_rows, pext.rcummin_rows_plain, _kernels.RCUMMIN,
+                minmax_rows),
+    "cummax": (pext.cummax_rows, pext.cummax_rows_plain, _kernels.CUMMAX,
+               minmax_rows),
+    "cumsum": (pext.cumsum_rows_wide, pext.cumsum_rows_plain,
+               _kernels.CUMSUM, cumsum_rows),
+}
+
+
+def _epoch(dev):
+    """The chained scans' first status word on the current stream: the
+    epoch, and the count of CTAs done (0 between launches) above it."""
+    return int(_kernels.stream_words(dev, 1)[0])
+
+
+def _chain_form(scan, b, w, shift, dev):
+    """One chained scan at (b, w), on its seeded rows (4 bytes past a
+    16-byte boundary when ``shift``): in its tile form, one launch,
+    bitwise equal to the plain version, the epoch moved on by one."""
+    wrapper, plain, kernel, rows = SCANS[scan]
+    v = torch.from_numpy(rows(b * w, b, w)).to(dev)
+    if shift:
+        v = _misaligned(v)
+    sms = _kernels.sm_count(dev.index)
+    wide = b * -(-w // pext.SUM_TILES[1]) >= 4 * sms
+    assert pext.cumsum_tile(b, w, sms) == pext.SUM_TILES[wide]
+    wrapper(v)                               # the words at their size
+    epoch = _epoch(dev)
+    before = kernel.launches
+    got = wrapper(v)
+    assert kernel.launches == before + 1
+    _equal([got], [plain(v)])
+    assert _epoch(dev) == epoch + 1
+
+
 @pytest.mark.parametrize("shift", [0, 1])
 @pytest.mark.parametrize("b,w", [
     (1, 1), (1, 1025), (2, 16401), (4, 200704), (1, 89216), (1, 1 << 20),
@@ -99,52 +140,80 @@ def test_cumsum_kernel_forms(cuda, b, w, shift):
     16417, 1025, 1); rows 4 bytes past a 16-byte boundary (shift). Each
     call is one launch, moves the epoch in its stream's words on by one
     and leaves no CTA counted there."""
-    v = torch.from_numpy(cumsum_rows(b * w, b, w)).to(cuda)
-    if shift:
-        v = _misaligned(v)
-    sms = _kernels.sm_count(cuda.index)
-    wide = b * -(-w // pext.SUM_TILES[1]) >= 4 * sms
-    assert pext.cumsum_tile(b, w, sms) == pext.SUM_TILES[wide]
-    pext.cumsum_rows_wide(v)                 # the words at their size
-    epoch = int(_kernels.stream_words(cuda, 1)[0])
-    before = _kernels.CUMSUM.launches
-    got = pext.cumsum_rows_wide(v)
-    assert _kernels.CUMSUM.launches == before + 1
-    _equal([got], [pext.cumsum_rows_plain(v)])
-    assert int(_kernels.stream_words(cuda, 1)[0]) == epoch + 1
+    _chain_form("cumsum", b, w, shift, cuda)
 
 
-def test_cumsum_epoch_wrap(cuda):
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,w", [
+    (1, 1), (1, 1025), (2, 16401), (4, 200704), (1, 89216), (33, 33792),
+    (131, 16417), (256, 32768), (256, 33792), (256, 38656), (1024, 75776)])
+@pytest.mark.parametrize("scan", ["rcummin", "cummax"])
+def test_minmax_kernel_forms(cuda, scan, b, w, shift):
+    """K7 and K8 on rows that hold INT_MIN, INT_MAX, -1 and 0x3FFFFFFF,
+    rising, falling and shuffled, at the cumsum's tile forms and the
+    paths' shapes (the 2^18 row's 4 x 200704 and 1 x 89216, the encoder's
+    256 x 32768, the fill's 256 x 38656, the raw chains' 1024 x 75776,
+    whose 10,240 CTAs are more than the card holds at once, so K7's CTAs
+    must take the tiles from the row's end); ragged and misaligned rows,
+    where K7's walk starts on the ragged tile."""
+    _chain_form(scan, b, w, shift, cuda)
+
+
+def test_chain_scans_interleave(cuda):
+    """K7, K8 and K9 alternate on one stream, on two shapes (two tile
+    forms), sharing its status words and epoch: every result exact, the
+    epoch moved on by three per round."""
+    few = torch.from_numpy(minmax_rows(1, 4, 200704)).to(cuda)
+    many = torch.from_numpy(minmax_rows(2, 256, 33792)).to(cuda)
+    order = ("rcummin", "cummax", "cumsum")
+    for v in (few, many):                    # the words at their size
+        for scan in order:
+            SCANS[scan][0](v)
+    for first, second in ((few, many), (many, few)):
+        epoch = _epoch(cuda)
+        got = [SCANS[scan][0](v)
+               for scan, v in zip(order, (first, second, first))]
+        _equal(got, [SCANS[scan][1](v)
+                     for scan, v in zip(order, (first, second, first))])
+        assert _epoch(cuda) == epoch + 3
+
+
+@pytest.mark.parametrize("scan", list(SCANS))
+def test_cumsum_epoch_wrap(cuda, scan):
     """The launch of the last 30-bit tag clears the status words and
-    starts the epoch over; the sums stay exact on both sides of it."""
-    v = torch.from_numpy(cumsum_rows(7, 4, 200704)).to(cuda)
-    want = pext.cumsum_rows_plain(v)
-    _equal([pext.cumsum_rows_wide(v)], [want])
+    starts the epoch over; each chained scan stays exact on both sides of
+    it."""
+    wrapper, plain, _, rows = SCANS[scan]
+    v = torch.from_numpy(rows(7, 4, 200704)).to(cuda)
+    want = plain(v)
+    _equal([wrapper(v)], [want])
     words = _kernels.stream_words(cuda, 1)
     words[0] = (1 << 30) - 2                 # the next tag is 2^30 - 1
-    _equal([pext.cumsum_rows_wide(v)], [want])
+    _equal([wrapper(v)], [want])
     assert int(words[0]) == 0 and not words[1:].any()
-    _equal([pext.cumsum_rows_wide(v)], [want])
+    _equal([wrapper(v)], [want])
     assert int(words[0]) == 1 and words[1:].any()
 
 
-def test_cumsum_graph_replays(cuda):
-    """A CUDA graph that captured the chained cumsum replays it exactly on
-    new inputs (the launch's tag comes from the device-side epoch)."""
-    v = torch.from_numpy(cumsum_rows(3, 4, 200704)).to(cuda)
+@pytest.mark.parametrize("scan", list(SCANS))
+def test_cumsum_graph_replays(cuda, scan):
+    """A CUDA graph that captured a chained scan replays it exactly on new
+    inputs (the launch's tag comes from the device-side epoch)."""
+    wrapper, plain, _, rows = SCANS[scan]
+    v = torch.from_numpy(rows(3, 4, 200704)).to(cuda)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        pext.cumsum_rows_wide(v)                 # the stream's words
+        wrapper(v)                               # the stream's words
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
-        out = pext.cumsum_rows_wide(v)
+        out = wrapper(v)
     for seed in (4, 5, 6):
-        v.copy_(torch.from_numpy(cumsum_rows(seed, 4, 200704)))
+        v.copy_(torch.from_numpy(rows(seed, 4, 200704)))
         graph.replay()
         torch.cuda.synchronize()
-        _equal([out], [pext.cumsum_rows_plain(v)])
+        _equal([out], [plain(v)])
 
 
 def test_cumsum_keeps_its_words(cuda):

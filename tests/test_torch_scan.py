@@ -27,7 +27,7 @@ from lzs_tpu.ops import sortmatch as jsm
 from lzs_tpu_torch import spec as tspec
 from lzs_tpu_torch.ops import pext, sortmatch
 
-from test_torch_cases import cumsum_rows
+from test_torch_cases import cumsum_rows, minmax_rows
 from test_torch_pcand import mixed_blocks
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -43,7 +43,8 @@ def _rows(seed: int, b: int, w: int) -> np.ndarray:
     return v.astype(np.int32)
 
 
-@pytest.mark.parametrize("b,w", [(8, 1024), (32, 128), (3, 777), (1, 1)])
+@pytest.mark.parametrize("b,w", [(8, 1024), (32, 128), (3, 777), (1, 1),
+                                 (33, 1024), (33, 8193), (2, 16417)])
 def test_scans_match_jax_pext(b, w):
     v = _rows(b * 1000 + w, b, w)
     got_max = pext.cummax_rows(torch.from_numpy(v)).numpy()
@@ -52,6 +53,20 @@ def test_scans_match_jax_pext(b, w):
         got_max, np.asarray(jpext.cummax_rows(jnp.asarray(v))))
     np.testing.assert_array_equal(
         got_min, np.asarray(jpext.rcummin_rows(jnp.asarray(v))))
+
+
+@pytest.mark.parametrize("b,w", [(33, 4097), (3, 16417), (6, 1)])
+def test_minmax_rows_match_jax_pext(b, w):
+    """Batch >= 32 (F4) and multi-tile widths, on rows that rise, fall and
+    are shuffled, with INT_MIN, INT_MAX, -1 and 0x3FFFFFFF in every row
+    (the rows the card's tests give K7 and K8)."""
+    v = minmax_rows(b + w, b, w)
+    np.testing.assert_array_equal(
+        pext.cummax_rows(torch.from_numpy(v)).numpy(),
+        np.asarray(jpext.cummax_rows(jnp.asarray(v))))
+    np.testing.assert_array_equal(
+        pext.rcummin_rows(torch.from_numpy(v)).numpy(),
+        np.asarray(jpext.rcummin_rows(jnp.asarray(v))))
 
 
 @pytest.mark.parametrize("w,tile", [(1000, 8192), (4096, 1024)])
