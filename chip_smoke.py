@@ -16,7 +16,9 @@ non-zero):
               decompress of the frozen 8 MiB corpus (256 blocks x 32768
               bytes; the match search's level kernel runs 11 times, k =
               2 .. 12, and its probe tier's gather and rank once or more
-              per wave; the decompress's lane parse once), of one
+              per wave; the decompress's lane parse once, in the lane-major form
+              that the fill takes, and its step-major form on the same
+              inputs beside it), of one
               decode_batch_raw of its raw payload and of the 2^18
               decode_block is recorded as it runs; each recorded
               call is then held against the kernel's plain torch version
@@ -24,7 +26,8 @@ non-zero):
               of each set of tensor shapes is timed with CUDA events (so
               every kernel is checked at exactly the shapes its paths give
               it), beside its bound and, where one PyTorch call computes
-              the same function, that call; and the library row sort of
+              the same function, that call (ext_fold: torch.cummax of its
+              prologue, for context); and the library row sort of
               one level's keys, which the level kernel keeps in shared
               memory, is timed beside that level;
   4. main     BlockCodec(block=32768, device="cuda") compress + decompress
@@ -185,7 +188,7 @@ WRAPPERS = {
     "pack": (ppack, "pack_rows", ppack.pack_rows_plain),
     "sync": (psync, "sync_records", psync.sync_records_plain),
     "expand": (pexpand, "expand_records", pexpand.expand_records_plain),
-    "parse": (decode2, "_parse_full", decode2._parse_full_plain),
+    "parse": (decode2, "_parse_flat", decode2._parse_flat_plain),
 }
 
 #: the PyTorch call that computes a kernel's function, where there is one
@@ -193,7 +196,7 @@ WRAPPERS = {
 #: entry takes the call's arguments and returns the call, ready to time.
 #: torch.gather takes int64 indices only, so gather_big's are widened
 #: before the timing (the clamp is a no-op on the path's in-range indices).
-#: No one PyTorch call computes the lane parse.
+#: No one PyTorch call computes the lane parse or ext_fold.
 LIBRARY = {
     "rowscan_cummax": lambda v: functools.partial(torch.cummax, v, dim=1),
     "rowscan_rcummin": lambda v: lambda: torch.cummin(
@@ -202,6 +205,17 @@ LIBRARY = {
         torch.cumsum, v, dim=1, dtype=torch.int32),
     "gather_big": lambda tab, idx: functools.partial(
         torch.gather, tab, 1, idx.clamp(0, tab.shape[1] - 1).long()),
+}
+
+#: a PyTorch call timed beside a kernel for context (not its library
+#: call, and not in the JSON line's library_ms): ext_fold's scan alone,
+#: torch.cummax of the values its prologue prepares, without the
+#: prologue's and epilogue's bytes
+CONTEXT = {
+    "ext_fold": ("torch.cummax of the prologue",
+                 lambda packed, ext_h, score, cap: functools.partial(
+                     torch.cummax, pext.fold_prologue(packed, ext_h, cap),
+                     dim=1)),
 }
 
 #: H100 SXM peaks: device memory bytes/s (NVIDIA's data sheet), and int32
@@ -283,6 +297,7 @@ def _bytes_moved(name: str, args: tuple, kw: dict, outs: tuple) -> int:
             torch.arange(tab.shape[0], device=idx.device)[:, None]
             * tab.shape[1] + idx.clamp(0, tab.shape[1] - 1).long())
         return 4 * (2 * idx.numel() + touched.numel())
+    # the rest (the parse too: its padded record plane is its output)
     tensors = [a for a in (*args, *kw.values(), *outs) if torch.is_tensor(a)]
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -313,13 +328,18 @@ def _compare(name: str, args: tuple, kw: dict, timed: bool) -> dict:
     bytes_ms = 1e3 * _bytes_moved(name, args, kw, got) / MEMORY_BYTES_PER_S
     elements = got[0].numel() if name == "expand" else _numel(name, args)
     ops_ms = 1e3 * OPS_PER_ELEMENT[name] * elements / INT32_OPS_PER_S
-    return {"max_abs_err": err,
-            "ms": cuda_ms(lambda: wrapper(*args, **kw)),
-            "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
-            "library_ms": (cuda_ms(library(*args, **kw))
-                           if library else None),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    out = {"max_abs_err": err,
+           "ms": cuda_ms(lambda: wrapper(*args, **kw)),
+           "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
+           "library_ms": (cuda_ms(library(*args, **kw))
+                          if library else None),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if name in CONTEXT:
+        label, call = CONTEXT[name]
+        out["context"] = {"call": label,
+                          "ms": cuda_ms(call(*args, **kw))}
+    return out
 
 
 def _shape_key(args: tuple, kw: dict) -> str:
@@ -379,6 +399,17 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
         f"({'x'.join(map(str, keys.shape))} int32) "
         f"{cuda_ms(lambda: torch.sort(keys, dim=1)):.4f} ms")
     del keys
+    # the parse's other store form, JAX's step-major records
+    # (decode2._parse_full), on the decode's own inputs: bitwise its plain
+    args, kw = calls["main"]["parse"][0]
+    got = decode2._parse_full(*args, **kw)
+    want = decode2._parse_full_plain(*args, **kw)
+    if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+        raise AssertionError("parse: the step-major form differs from plain")
+    log("kernels", f"parse's step-major form (_parse_full, "
+        f"{'x'.join(map(str, got[0].shape))} records) equal to plain "
+        f"(tolerance 0, bitwise)")
+    del got, want
 
     results = {}
     for path, by_kernel in calls.items():
@@ -406,7 +437,10 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
                          f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
                          f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']})"
                          + ("" if e["library_ms"] is None else
-                            f", library {e['library_ms']:.4f} ms"))
+                            f", library {e['library_ms']:.4f} ms")
+                         + ("" if "context" not in e else
+                            f"; context: {e['context']['call']} "
+                            f"{e['context']['ms']:.4f} ms"))
                 log("kernels", f"{path} {name} ({e['shape']}) x{e['calls']}: "
                     f"equal to plain (tolerance 0, bitwise), {times}")
             torch.cuda.empty_cache()

@@ -23,13 +23,27 @@
 // 0x3FFFFFFF: both fail nxt1 < 0x3FFFFFFF, so the outputs are equal.
 //
 // Bound: memory. ext_breaks reads score and off and writes one plane (12
-// bytes per element); ext_fold reads packed, score where not capped and
-// ext_h at heads, and writes one plane (12-16 bytes per element).
+// bytes per element); ext_fold must read packed, score where not capped
+// and ext_h at heads, and write one plane (12-16 bytes per element; the
+// kernel moves 16).
 //
-// Design: both are the row-scan walk of rowscan.cu (lzs::row_scan, one
+// Design: ext_breaks is the row-scan walk of scan.cuh (lzs::row_scan, one
 // CTA of 1024 threads per row) with the prologue fused into its load and
-// the epilogue into its store.
-#include "scan.cuh"
+// the epilogue into its store. ext_fold is an instance of the chained
+// scan of chain.cuh (a max forward, as K8 cummax_rows, with K8's tile
+// choice: one CTA of 256 threads per 4096- or 8192-element tile, the
+// tiles chained by decoupled look-back on the status words that K7-K9
+// share per device and stream), through FoldIo: a group of 4 positions
+// copies its 16 bytes of `packed`, `ext_h` and `score` into shared
+// memory at once (cp.async, warp-striped, 96 KiB for an 8192-element
+// tile), so that the three arrive in one memory latency; ext_h is read
+// whole, not only at heads, because reading it where `packed` shows a
+// head puts a second latency after the first (PERF.md). The group's
+// scan value and its output come from the slots, one 16-byte store.
+// Scalar loads and stores serve rows that are not 16-byte aligned or not
+// a multiple of 4 wide. A run whose head lies in an earlier tile gets it
+// from the look-back: the head's packed value is the running max there.
+#include "chain.cuh"
 
 namespace {
 
@@ -75,23 +89,88 @@ struct BreaksIo {
   }
 };
 
+// K5: the scanned value of a head is i << 16 | min(cap + ext_h, 0xFFFF),
+// -1 elsewhere; a capped position's output is its head's length less the
+// distance to it, score elsewhere. A 16-byte group stages its packed,
+// ext_h and score in shared memory (planes 0, 1, 2); a ragged or
+// misaligned group reads device memory (ext_h at heads only).
 struct FoldIo {
   const int* packed;
   const int* ext_h;
   const int* score;
   int* out;
   int cap;
-  int my_packed = 0;
+  struct Kept {
+    unsigned capped;   // bit j: element j of the group is capped
+  };
+  static constexpr int kPlanes = 3;
 
-  __device__ int load(int i) {
-    my_packed = packed[i];
-    if (((my_packed >> 2) & 1) == 0) return -1;
-    return (i << 16) | min(cap + ext_h[i], 0xFFFF);
+  __device__ __forceinline__ void stage(int64_t at, int4* slot,
+                                        int stride) const {
+    lzs::cp_async16(slot, packed + at);
+    lzs::cp_async16(slot + stride, ext_h + at);
+    lzs::cp_async16(slot + 2 * stride, score + at);
   }
 
-  __device__ void store(int i, int pk, int) const {
-    out[i] = ((my_packed >> 1) & 1) != 0 ? (pk & 0xFFFF) - (i - (pk >> 16))
-                                         : score[i];
+  __device__ __forceinline__ void load(int64_t at, int i, bool vec,
+                                       int count, int pad, int* v,
+                                       Kept& kept, const int4* slot,
+                                       int stride) const {
+    int p[4], e[4];
+    if (vec) {
+      const int4 p4 = slot[0], e4 = slot[stride];
+      p[0] = p4.x;
+      p[1] = p4.y;
+      p[2] = p4.z;
+      p[3] = p4.w;
+      e[0] = e4.x;
+      e[1] = e4.y;
+      e[2] = e4.z;
+      e[3] = e4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j] = j < count ? __ldg(packed + at + j) : 0;
+        e[j] = (p[j] >> 2) & 1 ? __ldg(ext_h + at + j) : 0;
+      }
+    }
+    kept.capped = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kept.capped |= static_cast<unsigned>((p[j] >> 1) & 1) << j;
+      v[j] = j < count ? -1 : pad;
+      if ((p[j] >> 2) & 1)
+        v[j] = ((i + j) << 16) | min(lzs::AddOp{}(cap, e[j]), 0xFFFF);
+    }
+  }
+
+  __device__ __forceinline__ void store(int64_t at, int i, bool vec,
+                                        int count, const int* s,
+                                        const Kept& kept, const int4* slot,
+                                        int stride) const {
+    int r[4];
+    if (vec) {
+      const int4 w4 = slot[2 * stride];
+      r[0] = w4.x;
+      r[1] = w4.y;
+      r[2] = w4.z;
+      r[3] = w4.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[j] = j < count ? __ldg(score + at + j) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if ((kept.capped >> j) & 1)
+        r[j] = (s[j] & 0xFFFF) - (i + j - (s[j] >> 16));
+    }
+    if (vec) {
+      *reinterpret_cast<int4*>(out + at) = make_int4(r[0], r[1], r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < count) out[at + j] = r[j];
+    }
   }
 };
 
@@ -102,15 +181,6 @@ ext_breaks_kernel(const int* __restrict__ score, const int* __restrict__ off,
   const int64_t row = static_cast<int64_t>(blockIdx.x) * npos;
   BreaksIo io{score + row, off + row, out + row, nb[blockIdx.x], npos, cap};
   lzs::row_scan<lzs::MinOp, true>(npos, io);
-}
-
-__global__ void __launch_bounds__(lzs::kThreads)
-ext_fold_kernel(const int* __restrict__ packed, const int* __restrict__ ext_h,
-                const int* __restrict__ score, int* __restrict__ out,
-                int npos, int cap) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * npos;
-  FoldIo io{packed + row, ext_h + row, score + row, out + row, cap};
-  lzs::row_scan<lzs::MaxOp, false>(npos, io);
 }
 
 }  // namespace
@@ -125,12 +195,14 @@ LZS_API int lzs_ext_breaks(const int* score, const int* off, const int* nb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// tile, words, capacity: as the chained row scans take them (rowscan.cu).
 LZS_API int lzs_ext_fold(const int* packed, const int* ext_h,
                          const int* score, int* out, int rows, int npos,
-                         int cap, int device, void* stream) {
-  const lzs::DeviceGuard guard(device);
-  ext_fold_kernel<<<rows, lzs::kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(packed, ext_h, score,
-                                                         out, npos, cap);
-  return static_cast<int>(cudaGetLastError());
+                         int cap, int tile, void* words, int capacity,
+                         int device, void* stream) {
+  const bool vec = npos % 4 == 0 && lzs::aligned16(packed) &&
+                   lzs::aligned16(score) && lzs::aligned16(out);
+  return lzs::chain_rows<lzs::MaxOp, false>(
+      FoldIo{packed, ext_h, score, out, cap}, vec, rows, npos, tile, words,
+      capacity, device, stream);
 }

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "lzs_gather_rows": [_P, _P, _P, _I, _I, _I],
     "lzs_perk_level": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     "lzs_ext_breaks": [_P, _P, _P, _P, _I, _I, _I],
-    "lzs_ext_fold": [_P, _P, _P, _P, _I, _I, _I],
+    "lzs_ext_fold": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I],
     "lzs_walk_tables": [_P, _P, _P, _I, _I],
     "lzs_walk_entries": [_P, _P, _I, _I],
     "lzs_walk_descent": [_P, _P, _P, _P, _I, _I, _I],
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "lzs_sync_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P],
     "lzs_expand_rows": [_P, _P, _I, _I, _P, _I, _P],
-    "lzs_parse_lanes": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "lzs_parse_lanes": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
 }
 
 

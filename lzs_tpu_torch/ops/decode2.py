@@ -16,12 +16,13 @@ Each parsed token becomes one int32 record (opos << 13 | is_copy << 11
 card) and ``pexpand.expand_records`` (a kernel on the card) turns the
 records into bytes.
 
-On a CUDA tensor the lane parse (``_parse_full``) launches
-``csrc/parse.cu``, one thread per (block, lane) carrying the parser state
-in registers through all (span/32 + 2) x 4 substeps; on a CPU tensor it
-runs ``_parse_full_plain``, a torch loop over the same substeps on
-(B, lanes) tensors, with uint32 word arithmetic on int64 masked to 32
-bits.
+On a CUDA tensor the lane parse launches ``csrc/parse.cu``, one thread
+per (block, lane) carrying the parser state in registers through all
+(span/32 + 2) x 4 substeps: ``_parse_full`` in JAX's step-major record
+layout, ``_parse_flat`` (the decode's) lane-major, clamped and padded, so
+that the fill is the cummax alone. On a CPU tensor each runs its plain
+version, a torch loop over the same substeps on (B, lanes) tensors, with
+uint32 word arithmetic on int64 masked to 32 bits.
 """
 
 from __future__ import annotations
@@ -135,6 +136,34 @@ def _parse_full_plain(comp: torch.Tensor, sync_bit: torch.Tensor,
     return torch.stack(recs, dim=1), outpos
 
 
+def _check_parse(comp: torch.Tensor, sync_bit: torch.Tensor,
+                 sync_out: torch.Tensor) -> tuple[int, int]:
+    """Validate the lane parse kernel's operands; returns (B, L)."""
+    if comp.dim() != 2 or sync_bit.dim() != 2:
+        raise ValueError(f"comp (B, C) and sync records (B, L) expected, "
+                         f"got {tuple(comp.shape)} and "
+                         f"{tuple(sync_bit.shape)}")
+    b, nslots = sync_bit.shape
+    _kernels.check(comp, "comp", torch.uint8, (b, comp.shape[1]))
+    _kernels.check(sync_bit, "sync_bit", torch.int32)
+    _kernels.check(sync_out, "sync_out", torch.int32, (b, nslots))
+    return b, nslots
+
+
+def _launch_parse(comp, sync_bit, sync_out, span, recs, width):
+    """Run csrc/parse.cu into ``recs`` (width 0: JAX's step-major layout,
+    else lane-major rows of ``width``); returns out_final."""
+    b, nslots = sync_bit.shape
+    out_final = torch.empty((b, nslots), dtype=torch.int32,
+                            device=comp.device)
+    if b and nslots:
+        _kernels.PARSE.launch(comp.device, comp.data_ptr(),
+                              sync_bit.data_ptr(), sync_out.data_ptr(), b,
+                              comp.shape[1], nslots, span // 32,
+                              recs.data_ptr(), width, out_final.data_ptr())
+    return out_final
+
+
 def _parse_full(comp: torch.Tensor, sync_bit: torch.Tensor,
                 sync_out: torch.Tensor, span: int):
     """Lane-parallel token parse of a batch of block streams.
@@ -148,42 +177,69 @@ def _parse_full(comp: torch.Tensor, sync_bit: torch.Tensor,
     """
     if _kernels.on_cpu(comp, sync_bit, sync_out):
         return _parse_full_plain(comp, sync_bit, sync_out, span)
-    if comp.dim() != 2 or sync_bit.dim() != 2:
-        raise ValueError(f"comp (B, C) and sync records (B, L) expected, "
-                         f"got {tuple(comp.shape)} and "
-                         f"{tuple(sync_bit.shape)}")
-    b, nslots = sync_bit.shape
-    _kernels.check(comp, "comp", torch.uint8, (b, comp.shape[1]))
-    _kernels.check(sync_bit, "sync_bit", torch.int32)
-    _kernels.check(sync_out, "sync_out", torch.int32, (b, nslots))
-    wpl = span // 32
-    recs = torch.empty((b, (wpl + 2) * _SUBSTEPS, nslots), dtype=torch.int32,
-                       device=comp.device)
-    out_final = torch.empty((b, nslots), dtype=torch.int32,
-                            device=comp.device)
-    if b and nslots:
-        _kernels.PARSE.launch(comp.device, comp.data_ptr(),
-                              sync_bit.data_ptr(), sync_out.data_ptr(), b,
-                              comp.shape[1], nslots, wpl, recs.data_ptr(),
-                              out_final.data_ptr())
-    return recs, out_final
+    b, nslots = _check_parse(comp, sync_bit, sync_out)
+    recs = torch.empty((b, (span // 32 + 2) * _SUBSTEPS, nslots),
+                       dtype=torch.int32, device=comp.device)
+    return recs, _launch_parse(comp, sync_bit, sync_out, span, recs, 0)
+
+
+def _flat_width(records: int) -> int:
+    """Slots of a lane-major row of ``records`` records: padded to a
+    multiple of 128, at least 768 (the TPU form's shape)."""
+    return max((records + 127) & ~127, _RW)
+
+
+def _flat_records(recs: torch.Tensor) -> torch.Tensor:
+    """int32[B, S, L] step-major records -> the fill's input: lane-major
+    int32[B, _flat_width(S * L)] rows, records below 0 as -1, padded with -1."""
+    b, steps, nslots = recs.shape
+    flat = recs.transpose(1, 2).reshape(b, -1)
+    want = _flat_width(steps * nslots)
+    if want != flat.shape[1]:
+        flat = torch.cat([flat, flat.new_full((b, want - flat.shape[1]),
+                                              -1)], dim=1)
+    return torch.where(flat >= 0, flat, -1).contiguous()
+
+
+def _parse_flat_plain(comp: torch.Tensor, sync_bit: torch.Tensor,
+                      sync_out: torch.Tensor, span: int):
+    """Plain-torch ``_parse_flat``: ``_parse_full_plain``, then the
+    transpose, the pad and the clamp (any device)."""
+    recs, out_final = _parse_full_plain(comp, sync_bit, sync_out, span)
+    return _flat_records(recs), out_final
+
+
+def _parse_flat(comp: torch.Tensor, sync_bit: torch.Tensor,
+                sync_out: torch.Tensor, span: int):
+    """The lane parse in the form the record fill takes: (flat
+    int32[B, _flat_width(L * S)], out_final int32[B, L]).
+
+    flat[b, l*S + 4*s + k] is ``_parse_full``'s record of substep k of
+    step s of lane l (S = 4 * (span/32 + 2)), any record below 0 as -1,
+    and -1 past L * S: what ``_filled_records`` hands the cummax. On a
+    CUDA tensor one launch of csrc/parse.cu writes it all.
+    """
+    if _kernels.on_cpu(comp, sync_bit, sync_out):
+        return _parse_flat_plain(comp, sync_bit, sync_out, span)
+    b, nslots = _check_parse(comp, sync_bit, sync_out)
+    width = _flat_width(nslots * (span // 32 + 2) * _SUBSTEPS)
+    flat = torch.empty((b, width), dtype=torch.int32, device=comp.device)
+    if not nslots:                  # no lanes: the kernel does not run
+        flat.fill_(-1)
+    return flat, _launch_parse(comp, sync_bit, sync_out, span, flat, width)
 
 
 def _filled_records(recs: torch.Tensor) -> torch.Tensor:
     """Lane-major record stream, cummax-filled for the record walk.
 
-    recs: int32[B, S, L] parse records (-1 empty). Records have strictly
-    increasing output positions in lane-major order, so a running max
-    fills every empty slot with the previous record. Padded with -1 to a
-    multiple of 128 slots (at least 768, the TPU form's shape).
+    recs: int32[B, S, L] parse records (-1 empty), JAX's layout. Records
+    have strictly increasing output positions in lane-major order, so a
+    running max fills every empty slot with the previous record. Padded
+    with -1 to a multiple of 128 slots (at least 768, the TPU form's
+    shape). The decode itself takes ``_parse_flat``'s rows, which are
+    ``_flat_records(recs)`` already.
     """
-    b = recs.shape[0]
-    flat = recs.transpose(1, 2).reshape(b, -1)
-    s = flat.shape[1]
-    want = max((s + 127) & ~127, _RW)
-    if want != s:
-        flat = torch.cat([flat, flat.new_full((b, want - s), -1)], dim=1)
-    return pext.cummax_rows(torch.where(flat >= 0, flat, -1).contiguous())
+    return pext.cummax_rows(_flat_records(recs))
 
 
 def decode_batch_sync(comp: torch.Tensor, sync_bit: torch.Tensor,
@@ -200,9 +256,9 @@ def decode_batch_sync(comp: torch.Tensor, sync_bit: torch.Tensor,
     0 means the block decoded cleanly.
     """
     with trace.stage("parse"):
-        recs, out_final = _parse_full(comp, sync_bit, sync_out, span)
+        flat, out_final = _parse_flat(comp, sync_bit, sync_out, span)
     with trace.stage("fill"):
-        fill = _filled_records(recs)
+        fill = pext.cummax_rows(flat)
     with trace.stage("expand"):
         out, status = pexpand.expand_records(fill, n.to(torch.int32),
                                              out_cap)

@@ -7,10 +7,11 @@ Port of six ``lzs_tpu.ops.pext`` roll-scan kernels: ``cummax_rows``
 ``_rank_kernel``) launch ``csrc/rowscan.cu`` on a CUDA tensor;
 ``ext_breaks`` (K4, ``_break_kernel``) and ``ext_fold`` (K5,
 ``_fold_kernel``) launch ``csrc/extend.cu``. On a CPU tensor each runs
-the plain version beside it. K7, K8 and K9 are one chained scan (a CTA
-per ``cumsum_tile``-wide tile, the tiles' partial results chained through
-status words in one launch), instantiated as max forward, min backward
-and sum forward.
+the plain version beside it. K5, K7, K8 and K9 are one chained scan (a
+CTA per ``cumsum_tile``-wide tile, the tiles' partial results chained
+through status words in one launch), instantiated as max forward (K8,
+and K5 with its prologue in the load and its epilogue in the store), min
+backward and sum forward.
 
 Callers: the emission-unit ownership scans (tokenize), the run-end
 pinning of the match extension and its probe tier (sortmatch:
@@ -54,30 +55,33 @@ def rank_mask_plain(mask: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(m, dim=1, dtype=torch.int32) - m
 
 
-def _chain(kernel: _kernels.Kernel, v: torch.Tensor) -> torch.Tensor:
-    """Launch one of the chained row scans (K7-K9) on int32[B, N] ``v``:
-    ``cumsum_tile`` elements per CTA, status words from ``stream_words``."""
+def _chain(kernel: _kernels.Kernel, operands: dict[str, torch.Tensor],
+           *scalars: int) -> torch.Tensor:
+    """Launch a chained row scan (K5, K7-K9) over int32[B, N] operands:
+    ``cumsum_tile`` elements per CTA, status words from ``stream_words``
+    (after the kernel's own ``scalars``)."""
+    v = next(iter(operands.values()))
     b, npos = v.shape if v.dim() == 2 else (0, 0)
     dev = v.device
     tile = cumsum_tile(b, npos, _kernels.sm_count(dev.index))
     # the kernels' epoch word, then one status word per tile
     words = _kernels.stream_words(dev, 1 + b * -(-npos // tile))
-    return _kernels.launch_rows(kernel, {"v": v}, tile, words.data_ptr(),
-                                words.numel() - 1)
+    return _kernels.launch_rows(kernel, operands, *scalars, tile,
+                                words.data_ptr(), words.numel() - 1)
 
 
 def cummax_rows(v: torch.Tensor) -> torch.Tensor:
     """Row-wise prefix cumulative max of int32[B, N]."""
     if _kernels.on_cpu(v):
         return cummax_rows_plain(v)
-    return _chain(_kernels.CUMMAX, v)
+    return _chain(_kernels.CUMMAX, {"v": v})
 
 
 def rcummin_rows(v: torch.Tensor) -> torch.Tensor:
     """Row-wise suffix cumulative min of int32[B, N]."""
     if _kernels.on_cpu(v):
         return rcummin_rows_plain(v)
-    return _chain(_kernels.RCUMMIN, v)
+    return _chain(_kernels.RCUMMIN, {"v": v})
 
 
 def cumsum_tile(b: int, npos: int, sms: int) -> int:
@@ -100,7 +104,7 @@ def cumsum_rows_wide(v: torch.Tensor, tile: int = 8192) -> torch.Tensor:
     del tile
     if _kernels.on_cpu(v):
         return cumsum_rows_plain(v)
-    return _chain(_kernels.CUMSUM, v)
+    return _chain(_kernels.CUMSUM, {"v": v})
 
 
 def rank_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -155,14 +159,22 @@ def ext_breaks(score: torch.Tensor, off: torch.Tensor, n: torch.Tensor,
                                 {"score": score, "off": off, "n": n}, cap)
 
 
+def fold_prologue(packed: torch.Tensor, ext_h: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """The values ext_fold scans: i << 16 | min(cap + ext_h, 0xFFFF) at a
+    head, -1 elsewhere."""
+    i = torch.arange(packed.shape[1], dtype=torch.int32,
+                     device=packed.device)
+    head = ((packed >> 2) & 1) != 0
+    return torch.where(head, (i << 16) | (cap + ext_h).clamp(max=0xFFFF), -1)
+
+
 def ext_fold_plain(packed: torch.Tensor, ext_h: torch.Tensor,
                    score: torch.Tensor, cap: int) -> torch.Tensor:
     i = torch.arange(packed.shape[1], dtype=torch.int32,
                      device=packed.device)
-    head = ((packed >> 2) & 1) != 0
     capped = ((packed >> 1) & 1) != 0
-    pk = cummax_rows_plain(torch.where(
-        head, (i << 16) | (cap + ext_h).clamp(max=0xFFFF), -1))
+    pk = cummax_rows_plain(fold_prologue(packed, ext_h, cap))
     return torch.where(capped, (pk & 0xFFFF) - (i - (pk >> 16)), score)
 
 
@@ -175,6 +187,5 @@ def ext_fold(packed: torch.Tensor, ext_h: torch.Tensor, score: torch.Tensor,
     check_npos(packed.shape[-1])
     if _kernels.on_cpu(packed, ext_h, score):
         return ext_fold_plain(packed, ext_h, score, cap)
-    return _kernels.launch_rows(
-        _kernels.EXT_FOLD, {"packed": packed, "ext_h": ext_h, "score": score},
-        cap)
+    return _chain(_kernels.EXT_FOLD,
+                  {"packed": packed, "ext_h": ext_h, "score": score}, cap)

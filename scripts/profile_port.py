@@ -54,7 +54,7 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 #: the __global__ functions of lzs_tpu_torch/csrc (each opens a line)
 _PORT_KERNELS = frozenset(
-    name for src in (ROOT / "lzs_tpu_torch" / "csrc").glob("*.cu")
+    name for src in (ROOT / "lzs_tpu_torch" / "csrc").glob("*.cu*")
     for name in re.findall(r"^(\w+_kernel)\(", src.read_text(), re.M))
 
 
@@ -100,8 +100,8 @@ def device_summary(events: list[dict]) -> dict:
         iv = (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
         by_stage[stage_of(ev)].append(iv)
         by_name[ev["name"][:60]] += float(ev["dur"])
-        name = re.sub(r"^(void )?\(anonymous namespace\)::", "",
-                      ev["name"]).split("(")[0]
+        name = re.sub(r"^(void )?(\w+::)*", "", ev["name"].replace(
+            "(anonymous namespace)::", "")).split("(")[0]
         if name.split("<")[0] in _PORT_KERNELS:
             port[name][0] += 1
             port[name][1] += float(ev["dur"])

@@ -1,5 +1,5 @@
-"""Seeded edge inputs for the row scans (K7-K9), the token walk's entries
-(K12), sync (K16) and expand (K17).
+"""Seeded edge inputs for the row scans (K7-K9), the match extension's
+fold (K5), the token walk's entries (K12), sync (K16) and expand (K17).
 
 tests/test_torch_scan.py, tests/test_torch_walk.py,
 tests/test_torch_sync.py and tests/test_torch_expand.py hold the port's
@@ -14,7 +14,12 @@ many times in every piece a kernel splits a row into. Min/max rows rise,
 fall or are noise over all of int32, with INT_MIN, INT_MAX and the
 callers' sentinels -1 and 0x3FFFFFFF in every row: a rising row's running
 max and suffix min change in every piece, a falling row's come from its
-far end, across every piece. Walk rows are token
+far end, across every piece. Fold rows are (score, off, n, ext_h) for
+ext_breaks and then ext_fold: capped runs (score == cap, one offset) that
+cross every multiple of 4096 (the chained scan's tiles), one that spans
+two whole tiles, heads whose cap + ext_h lands at 0xFFFF, past it, or
+wraps int32, rows that end in a capped head, and a ragged width. Walk rows
+are token
 steps (0 and -1 count as 1) whose chains enter most tiles, skip whole
 runs of 16 and of 128 tiles (the entry kernel's ring slot and its ring)
 and, in row 0, leave the row with a step of 2^30.
@@ -36,7 +41,7 @@ import pytest
 import torch
 
 from lzs_tpu_torch import spec
-from lzs_tpu_torch.ops import decode2, encode
+from lzs_tpu_torch.ops import decode2, encode, pext
 
 # a copy of length >= 8 starting here in a wide row: its nibble chain
 # crosses the next 8192-position boundary (each CTA of the sync kernel
@@ -77,6 +82,44 @@ def minmax_rows(seed, b, w):
     v[kind == 1] = v[kind == 1, ::-1]
     v[kind == 2] = rng.permuted(v[kind == 2], axis=1)
     return v.astype(np.int32)
+
+
+#: the match search's cap, and the ext_h values (past the random ones)
+#: that the fold rows give the heads of their long runs: cap + ext_h at
+#: 0xFFFF, one past, far past, and wrapping int32
+FOLD_CAP = 12
+FOLD_EXT_H = (0xFFFF - FOLD_CAP, 0x10000 - FOLD_CAP, 1 << 20,
+              I32.max - 5)
+
+
+def fold_rows(seed, b, w):
+    """(score, off, n, ext_h) int32 rows of width ``w`` for ext_breaks and
+    ext_fold at cap FOLD_CAP: 60% of the scores capped over offsets 1-3
+    (short runs everywhere); around every multiple of 4096 a capped run of
+    one offset from 300 before to 300 after it, whose head gets
+    FOLD_EXT_H[(row + j) % 3] for the row's j-th run; in row 1 one run
+    from 3000 to 12500 (over the whole tile 4096-8191 where the row is that
+    wide), whose head gets FOLD_EXT_H[3]; other positions ext_h in
+    [0, 5000). Rows 0, 1 and every third row have n past the row, so their
+    runs are capped to the row's end."""
+    rng = np.random.default_rng(seed)
+    score = rng.integers(0, FOLD_CAP + 1, (b, w))
+    score[rng.random((b, w)) < 0.6] = FOLD_CAP
+    off = rng.integers(1, 4, (b, w))
+    ext_h = rng.integers(0, 5000, (b, w))
+    runs = [(max(k - 300, 0), min(k + 300, w), j % 3)
+            for j, k in enumerate(range(4096, w, 4096))]
+    for r in range(b):
+        long = [(3000, min(12500, w), 3)] if r == 1 and w > 3000 else []
+        for lo, hi, value in long or runs:
+            score[r, lo:hi] = FOLD_CAP
+            off[r, lo:hi] = 5 + r % 7
+            score[r, lo - 1] = 0                # a head at lo
+            ext_h[r, lo] = FOLD_EXT_H[(value + r) % 3 if value < 3 else 3]
+    n = rng.integers(w // 2, w + 1, b)
+    n[::3] = w + 20
+    n[1:2] = w + 20
+    return tuple(a.astype(np.int32) for a in (score, off, n, ext_h))
 
 
 #: tiles of the walk skipped by a long step: past one ring slot of the
@@ -317,6 +360,28 @@ def test_minmax_rows_properties(w):
     for falling in v[1::3]:
         assert (np.maximum.accumulate(falling)[64:] == I32.max).all()
         assert (np.minimum.accumulate(falling[::-1])[64:] == I32.min).all()
+
+
+@pytest.mark.parametrize("b,w", [(33, 8195), (3, 12290)])
+def test_fold_rows_properties(b, w):
+    score, off, n, ext_h = (torch.from_numpy(a) for a in fold_rows(w, b, w))
+    packed = pext.ext_breaks_plain(score, off, n, FOLD_CAP)
+    head, capped = (packed >> 2) & 1, (packed >> 1) & 1
+    i = torch.arange(w)
+    long = n > w + FOLD_CAP                    # rows whose runs all count
+    assert long[0] and long[1]
+    long[1] = False                            # its one long run
+    for k in range(4096, w, 4096):
+        # a capped run over the tile boundary, its head in the tile before
+        assert capped[long, k - 300:k + 300].all()
+        assert not head[long, k - 299:k + 300].any()
+    assert capped[1, 3000:12500].all() and not head[1, 3001:12500].any()
+    full = (FOLD_CAP + ext_h.long())[head == 1]
+    for value in (0xFFFF, 0x10000, FOLD_CAP + (1 << 20)):
+        assert (full == value).any()
+    assert (full > I32.max).any()              # cap + ext_h wraps
+    assert (capped[:, -1] == 1).any()          # a run reaches the row's end
+    assert w % 4 and ((i[None] < n[:, None]) & (capped == 0)).any()
 
 
 @pytest.mark.parametrize("b,ntiles", [(3, 1), (4, 600)])

@@ -28,6 +28,8 @@ bytes (also a 256-block container), the probe's run lengths and the raw
 decoder's output on the card are compared with the CPU's.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -37,9 +39,9 @@ from lzs_tpu_torch.ops import (_kernels, decode, decode2, encode, pcand,
                                pexpand, pext, pgather, ppack, psync, pwalk,
                                sortmatch)
 
-from test_torch_cases import (WALK_SKIPS, cumsum_rows, expand_batch,
-                              hand_fill, minmax_rows, sync_batch, sync_kwargs,
-                              walk_steps)
+from test_torch_cases import (FOLD_CAP, WALK_SKIPS, cumsum_rows,
+                              expand_batch, fold_rows, hand_fill, minmax_rows,
+                              sync_batch, sync_kwargs, walk_steps)
 
 pytestmark = pytest.mark.gpu
 
@@ -159,12 +161,21 @@ def test_minmax_kernel_forms(cuda, scan, b, w, shift):
     _chain_form(scan, b, w, shift, cuda)
 
 
+def _fold_inputs(seed, b, w, dev):
+    """The seeded fold rows on the card as ext_fold takes them: (packed,
+    ext_h, score), packed from the plain ext_breaks."""
+    score, off, n, ext_h = (torch.from_numpy(a).to(dev)
+                            for a in fold_rows(seed, b, w))
+    return pext.ext_breaks_plain(score, off, n, FOLD_CAP), ext_h, score
+
+
 def test_chain_scans_interleave(cuda):
-    """K7, K8 and K9 alternate on one stream, on two shapes (two tile
-    forms), sharing its status words and epoch: every result exact, the
-    epoch moved on by three per round."""
+    """K7, K8, K9 and K5 alternate on one stream, on two shapes (two tile
+    forms; K5 at the encoder's 256 x 32768), sharing its status words and
+    epoch: every result exact, the epoch moved on by four per round."""
     few = torch.from_numpy(minmax_rows(1, 4, 200704)).to(cuda)
     many = torch.from_numpy(minmax_rows(2, 256, 33792)).to(cuda)
+    fold = _fold_inputs(3, 256, 32768, cuda)
     order = ("rcummin", "cummax", "cumsum")
     for v in (few, many):                    # the words at their size
         for scan in order:
@@ -173,25 +184,38 @@ def test_chain_scans_interleave(cuda):
         epoch = _epoch(cuda)
         got = [SCANS[scan][0](v)
                for scan, v in zip(order, (first, second, first))]
+        got.append(pext.ext_fold(*fold, FOLD_CAP))
         _equal(got, [SCANS[scan][1](v)
-                     for scan, v in zip(order, (first, second, first))])
-        assert _epoch(cuda) == epoch + 3
+                     for scan, v in zip(order, (first, second, first))]
+               + [pext.ext_fold_plain(*fold, FOLD_CAP)])
+        assert _epoch(cuda) == epoch + 4
 
 
-@pytest.mark.parametrize("scan", list(SCANS))
+def _scan_call(scan, seed, dev):
+    """A chained scan's call and its plain version on its seeded rows: K7-K9
+    on 4 x 200704, K5 (``fold``) on 4 x 32768 fold rows."""
+    if scan == "fold":
+        args = _fold_inputs(seed, 4, 32768, dev)
+        return (lambda: pext.ext_fold(*args, FOLD_CAP),
+                lambda: pext.ext_fold_plain(*args, FOLD_CAP))
+    wrapper, plain, _, rows = SCANS[scan]
+    v = torch.from_numpy(rows(seed, 4, 200704)).to(dev)
+    return lambda: wrapper(v), lambda: plain(v)
+
+
+@pytest.mark.parametrize("scan", [*SCANS, "fold"])
 def test_cumsum_epoch_wrap(cuda, scan):
     """The launch of the last 30-bit tag clears the status words and
-    starts the epoch over; each chained scan stays exact on both sides of
-    it."""
-    wrapper, plain, _, rows = SCANS[scan]
-    v = torch.from_numpy(rows(7, 4, 200704)).to(cuda)
-    want = plain(v)
-    _equal([wrapper(v)], [want])
+    starts the epoch over; each chained scan (K5 too) stays exact on both
+    sides of it."""
+    call, plain = _scan_call(scan, 7, cuda)
+    want = plain()
+    _equal([call()], [want])
     words = _kernels.stream_words(cuda, 1)
     words[0] = (1 << 30) - 2                 # the next tag is 2^30 - 1
-    _equal([wrapper(v)], [want])
+    _equal([call()], [want])
     assert int(words[0]) == 0 and not words[1:].any()
-    _equal([wrapper(v)], [want])
+    _equal([call()], [want])
     assert int(words[0]) == 1 and words[1:].any()
 
 
@@ -301,6 +325,31 @@ def test_ext_kernels(cuda, b, w):
         before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,w", [(256, 32768), (1, 32768), (1, 1), (2, 5),
+                                 (33, 8195), (3, 12290), (131, 4097)])
+def test_ext_fold_kernel_forms(cuda, b, w, shift):
+    """K5 on the seeded fold rows (capped runs over every 4096-element
+    tile boundary and over a whole tile, cap + ext_h at, past and
+    wrapping 0xFFFF, runs to the row's end): the encoder's 256 x 32768 (the
+    8192 tile), one row, ragged widths, rows 4 bytes past a 16-byte
+    boundary (shift: scalar loads and stores). Each call is one launch and
+    moves the chained scans' epoch on by one."""
+    args = _fold_inputs(w, b, w, cuda)
+    if shift:
+        args = tuple(_misaligned(a) for a in args)
+    sms = _kernels.sm_count(cuda.index)
+    wide = b * -(-w // pext.SUM_TILES[1]) >= 4 * sms
+    assert pext.cumsum_tile(b, w, sms) == pext.SUM_TILES[wide]
+    pext.ext_fold(*args, FOLD_CAP)           # the words at their size
+    epoch = _epoch(cuda)
+    before = _kernels.EXT_FOLD.launches
+    got = pext.ext_fold(*args, FOLD_CAP)
+    assert _kernels.EXT_FOLD.launches == before + 1
+    _equal([got], [pext.ext_fold_plain(*args, FOLD_CAP)])
+    assert _epoch(cuda) == epoch + 1
+
+
 @pytest.mark.parametrize("b,w", [(1, 1), (33, 1000), (5, 1025),
                                  (256, 32768)])
 def test_rank_mask_kernel(cuda, b, w):
@@ -347,10 +396,16 @@ def _corpus_like(seed, nbytes):
 
 
 def _parse_equal(comp, sbit, sout, span):
+    """Both store forms of the parse kernel, one launch each, bitwise equal
+    to their plain versions: JAX's step-major records (returned) and the
+    decode's lane-major, clamped, padded rows."""
     before = _kernels.PARSE.launches
     got = decode2._parse_full(comp, sbit, sout, span)
     assert _kernels.PARSE.launches == before + 1
     _equal(got, decode2._parse_full_plain(comp, sbit, sout, span))
+    flat = decode2._parse_flat(comp, sbit, sout, span)
+    assert _kernels.PARSE.launches == before + 2
+    _equal(flat, decode2._parse_flat_plain(comp, sbit, sout, span))
     return got
 
 
@@ -406,6 +461,59 @@ def test_container_256_blocks_on_card_equals_cpu(cuda):
     counts = _kernels.launch_counts()
     assert (counts["parse"], counts["rowscan_cummax"], counts["expand"]) == (
         1, 1, 1)
+
+
+def _stage_kernels(events):
+    """Device kernel names by the ``lzs::<stage>`` span open at their
+    launch, from a profiler's Chrome trace events."""
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"][len("lzs::"):])
+             for e in events if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("lzs::")]
+    by_stage = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        t = launch.get(e.get("args", {}).get("correlation"))
+        stage = next((name for lo, hi, name in spans
+                      if t is not None and lo <= t < hi), "other")
+        by_stage.setdefault(stage, []).append(e["name"])
+    return by_stage
+
+
+def test_decode_fill_stage_runs_k8_alone(cuda, tmp_path):
+    """A profiled decode_batch_sync at the container's shapes: the parse
+    stage runs the parse kernel once, and the fill stage runs K8 and no
+    other device kernel (the parse writes the fill's lane-major, clamped,
+    padded rows itself)."""
+    block = 1 << 15
+    data = _corpus_like(8, 16 * block)
+    x, lens = pad_blocks(data, block)
+    n = torch.from_numpy(lens).to(cuda)
+    codec = BlockCodec(block=block, device=cuda)
+    comp, _, sbit, sout, _ = codec.encode_batch(torch.from_numpy(x).to(cuda),
+                                                n)
+    args = (comp, sbit, sout, n)
+    decode2.decode_batch_sync(*args, out_cap=block)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out, status = decode2.decode_batch_sync(*args, out_cap=block)
+        torch.cuda.synchronize()
+    path = tmp_path / "decode.json"
+    prof.export_chrome_trace(str(path))
+    by_stage = _stage_kernels(json.loads(path.read_text())["traceEvents"])
+    assert len(by_stage["parse"]) == 1, by_stage
+    assert "parse_lanes_kernel" in by_stage["parse"][0]
+    assert len(by_stage["fill"]) == 1, by_stage
+    (fill,) = by_stage["fill"]
+    assert "chain_scan_kernel" in fill and "MaxOp" in fill
+    assert "CopyIo" in fill
+    assert not status.any()
+    assert torch.equal(out[:, :block].cpu(), torch.from_numpy(x))
 
 
 def test_probe_on_card_equals_cpu(cuda):
@@ -761,3 +869,7 @@ def test_wrappers_reject_bad_operands(cuda):
         decode2._parse_full(comp[:3], v, v, 160)
     with pytest.raises(ValueError):
         decode2._parse_full(comp, v, v.cpu(), 160)
+    with pytest.raises(TypeError):
+        decode2._parse_flat(comp.to(torch.int32), v, v, 160)
+    with pytest.raises(ValueError):
+        decode2._parse_flat(comp, v, v[:, ::2], 160)

@@ -1,4 +1,5 @@
-"""lzs_tpu_torch: the container decode's lane parse (decode2._parse_full).
+"""lzs_tpu_torch: the container decode's lane parse (decode2._parse_full,
+and _parse_flat, the form the decode runs).
 
 The port's lane parse on CPU tensors (its plain version; a CUDA tensor
 launches ``csrc/parse.cu``) against the JAX package's ``_parse_full``
@@ -11,6 +12,12 @@ bit offsets just before each span boundary) and the rest corrupt ones
 (any bit offset in [0, 8C], any mode and offset bits, bit 31 set in some
 rows, which makes the match offset negative); byte rows longer and
 shorter than the lanes' L * span / 8 bytes (odd lengths too); one lane.
+The decode's form, ``_parse_flat`` (lane-major records, below 0 as -1,
+padded with -1), filled by the running max, is held to JAX's
+``_filled_records`` of its ``_parse_full`` records, with ``out_final``,
+at batch 33, lane counts that are not a multiple of 32, C % 4 != 0 and
+the same corrupt records (whose negative records JAX clamps to -1 only in
+the fill).
 """
 
 import numpy as np
@@ -21,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from lzs_tpu.ops import decode2 as jdec2
-from lzs_tpu_torch.ops import _kernels, decode2
+from lzs_tpu_torch.ops import _kernels, decode2, pext
 
 B = 33
 
@@ -71,6 +78,35 @@ def test_parse_matches_jax(span, nslots, extra):
         assert (recs == -1).all()
 
 
+@pytest.mark.parametrize("span,nslots,extra", [
+    (160, 37, -7),        # 37 lanes, C = 733 (C % 4 == 1)
+    (96, 33, 2),          # an odd number of word steps (5), C % 4 == 2
+    (2048, 5, 41),
+    (160, 1, 6),          # one lane: every record -1, all padding
+])
+def test_parse_flat_fill_matches_jax(span, nslots, extra):
+    c = nslots * span // 8 + extra
+    comp, sbit, sout = _inputs(span * nslots + extra, B, nslots, span, c)
+    want_recs, want_final = _jax_parse(comp, sbit, sout, span)
+    want_fill = np.asarray(jdec2._filled_records(want_recs))
+    args = [torch.from_numpy(a) for a in (comp, sbit, sout)]
+    flat, final = decode2._parse_flat_plain(*args, span)
+    steps = (span // 32 + 2) * 4
+    assert flat.dtype == final.dtype == torch.int32
+    assert flat.shape == want_fill.shape == (
+        B, max(-(-nslots * steps // 128) * 128, 768))
+    assert (flat >= -1).all() and (flat[:, nslots * steps:] == -1).all()
+    np.testing.assert_array_equal(
+        pext.cummax_rows_plain(flat).numpy(), want_fill)
+    np.testing.assert_array_equal(final.numpy(), np.asarray(want_final))
+    # the records themselves: JAX's, lane-major, clamped
+    recs = np.asarray(want_recs).transpose(0, 2, 1).reshape(B, -1)
+    np.testing.assert_array_equal(flat[:, :recs.shape[1]].numpy(),
+                                  np.maximum(recs, -1))
+    if nslots > 1:
+        assert (recs < -1).any()           # negative records, clamped
+
+
 def test_parse_on_cpu_launches_nothing():
     comp, sbit, sout = _inputs(1, 4, 3, 160, 60)
     args = [torch.from_numpy(a) for a in (comp, sbit, sout)]
@@ -81,9 +117,27 @@ def test_parse_on_cpu_launches_nothing():
         assert torch.equal(g, w)
 
 
+def test_parse_flat_on_cpu_launches_nothing():
+    comp, sbit, sout = _inputs(1, 4, 3, 160, 60)
+    args = [torch.from_numpy(a) for a in (comp, sbit, sout)]
+    _kernels.reset_launches()
+    got = decode2._parse_flat(*args, 160)
+    assert not any(_kernels.launch_counts().values())
+    for g, w in zip(got, decode2._parse_flat_plain(*args, 160), strict=True):
+        assert torch.equal(g, w)
+
+
 def test_parse_rejects_mixed_devices():
     comp, sbit, sout = _inputs(2, 4, 3, 160, 60)
     with pytest.raises(ValueError, match="several devices"):
         decode2._parse_full(torch.from_numpy(comp),
+                            torch.from_numpy(sbit).to("meta"),
+                            torch.from_numpy(sout), 160)
+
+
+def test_parse_flat_rejects_mixed_devices():
+    comp, sbit, sout = _inputs(2, 4, 3, 160, 60)
+    with pytest.raises(ValueError, match="several devices"):
+        decode2._parse_flat(torch.from_numpy(comp),
                             torch.from_numpy(sbit).to("meta"),
                             torch.from_numpy(sout), 160)

@@ -27,7 +27,7 @@ from lzs_tpu.ops import sortmatch as jsm
 from lzs_tpu_torch import spec as tspec
 from lzs_tpu_torch.ops import pext, sortmatch
 
-from test_torch_cases import cumsum_rows, minmax_rows
+from test_torch_cases import FOLD_CAP, cumsum_rows, fold_rows, minmax_rows
 from test_torch_pcand import mixed_blocks
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -114,23 +114,42 @@ def _ext_h(x, n, packed, off, cap=12):
     return torch.where(need, probe, packed >> 3)
 
 
-@pytest.mark.parametrize("npos", [512, 1024])
-@pytest.mark.parametrize("b", [3, 8, 32])
-def test_ext_breaks_and_fold_match_jax_pext(b, npos):
-    x, n = mixed_blocks(b * npos, b, npos)
-    xj, nj = jnp.asarray(x), jnp.asarray(n)
-    score, off = jax.jit(jax.vmap(lambda a, m: jsm.candidates(a, m)))(xj, nj)
-    st, ot = torch.from_numpy(np.array(score)), torch.from_numpy(np.array(off))
-    want = np.asarray(jpext.ext_breaks(score, off, nj, 12))
-    packed = pext.ext_breaks(st, ot, torch.from_numpy(n), 12)
+#: (b, npos, source): the match search's own (score, off) on mixed blocks,
+#: and the seeded fold rows of tests/test_torch_cases.py (capped runs over
+#: the chained scan's 4096-element tiles, cap + ext_h at and past 0xFFFF,
+#: ragged widths), which the gpu tests feed to the kernels too
+FOLD_CASES = [pytest.param(b, npos, "blocks", id=f"{b}-{npos}")
+              for b in (3, 8, 32) for npos in (512, 1024)] + [
+    pytest.param(33, 8195, "fold_rows", id="fold_rows-33-8195"),
+    pytest.param(3, 12290, "fold_rows", id="fold_rows-3-12290")]
+
+
+@pytest.mark.parametrize("b,npos,source", FOLD_CASES)
+def test_ext_breaks_and_fold_match_jax_pext(b, npos, source):
+    if source == "blocks":
+        x, n = mixed_blocks(b * npos, b, npos)
+        xj, nj = jnp.asarray(x), jnp.asarray(n)
+        score, off = jax.jit(jax.vmap(lambda a, m: jsm.candidates(a, m)))(
+            xj, nj)
+        score, off = np.array(score), np.array(off)
+    else:
+        score, off, n, ext_h = fold_rows(npos, b, npos)
+    st, ot = torch.from_numpy(score), torch.from_numpy(off)
+    want = np.asarray(jpext.ext_breaks(jnp.asarray(score), jnp.asarray(off),
+                                       jnp.asarray(n), FOLD_CAP))
+    packed = pext.ext_breaks(st, ot, torch.from_numpy(n), FOLD_CAP)
     np.testing.assert_array_equal(packed.numpy(), want)
     assert ((packed & 1) != 0).any() and ((packed & 4) != 0).any()
-    ext_h = _ext_h(torch.from_numpy(x), torch.from_numpy(n), packed, ot)
-    full = pext.ext_fold(packed, ext_h, st, 12)
+    if source == "blocks":
+        ext_h = _ext_h(torch.from_numpy(x), torch.from_numpy(n), packed, ot)
+    else:
+        ext_h = torch.from_numpy(ext_h)
+    full = pext.ext_fold(packed, ext_h, st, FOLD_CAP)
     np.testing.assert_array_equal(
         full.numpy(), np.asarray(jpext.ext_fold(
-            jnp.asarray(want), jnp.asarray(ext_h.numpy()), score, 12)))
-    assert full.numpy().max() > 12
+            jnp.asarray(want), jnp.asarray(ext_h.numpy()),
+            jnp.asarray(score), FOLD_CAP)))
+    assert full.numpy().max() > FOLD_CAP
 
 
 @pytest.mark.parametrize("b", [3, 32])
