@@ -1,5 +1,5 @@
-// The one-pass chained row scan (decoupled look-back) shared by K5
-// (extend.cu) and K7-K9 (rowscan.cu).
+// The one-pass chained row scan (decoupled look-back) shared by K4 and
+// K5 (extend.cu) and K7-K9 (rowscan.cu).
 //
 // chain_scan_kernel<Op, kReverse, kVec, kRun, Io> scans int32 rows of n
 // elements: one CTA of 256 threads per tile of 256 * kRun elements, the
@@ -15,8 +15,16 @@
 //       that all 4 lie in the row and that 16-byte accesses are aligned.
 //       `kept` (an Io::Kept) keeps what the store needs of the load.
 //   io.store(at, i, vec, count, s, kept, slot, stride)
-//       write the group's output from its inclusive scan s[0..3].
-//   Io::kPlanes, io.stage(at, slot, stride)
+//       write the group's output from its inclusive scan s[0..3], or,
+//       where Io::kExclusive, its exclusive scan: each element's value
+//       before it in walk order (the walk's first element gets Op's
+//       identity). The template forms it in place: a group's inclusive
+//       values move one element against the walk, and the group's last
+//       element in walk order takes the value before the group.
+//   io.bind(row)
+//       the policy as the CTA of row `row` uses it (K4 reads the row's
+//       block length there; the others return themselves).
+//   Io::kPlanes, io.stage(at, i, slot, stride)
 //       a policy that reads several inputs stages them: for every `vec`
 //       group the kernel first calls stage(), which copies the group's 16
 //       bytes of each of kPlanes inputs into shared memory (cp.async, to
@@ -170,6 +178,7 @@ chain_scan_kernel(const Io io, int n, int tiles,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const Op op{};
+  const Io rio = io.bind(row);
   unsigned* const control = reinterpret_cast<unsigned*>(words);
   unsigned long long* const tile_words = words + 1;
   // this launch's tag (warp 0 publishes and looks back)
@@ -183,7 +192,8 @@ chain_scan_kernel(const Io io, int n, int tiles,
     for (int r = 0; r < kRun; r += 4) {
       const int e = striped<kRun>(r);
       if (kVec && e + 4 <= lim)
-        io.stage(base + e, slots + (r / 4) * kChainThreads, kStride);
+        rio.stage(base + e, lo + e, slots + (r / 4) * kChainThreads,
+                  kStride);
     }
     cp_async_wait_all();             // this thread's own slots
   }
@@ -192,9 +202,9 @@ chain_scan_kernel(const Io io, int n, int tiles,
 #pragma unroll
   for (int r = 0; r < kRun; r += 4) {
     const int e = striped<kRun>(r);
-    io.load(base + e, lo + e, kVec && e + 4 <= lim, min(max(lim - e, 0), 4),
-            Op::identity, &v[r], kept[r / 4], slots + (r / 4) * kChainThreads,
-            kStride);
+    rio.load(base + e, lo + e, kVec && e + 4 <= lim, min(max(lim - e, 0), 4),
+             Op::identity, &v[r], kept[r / 4], slots + (r / 4) * kChainThreads,
+             kStride);
   }
   // each group of 4 in walk order: in the thread, then across the warp
   int warp_part = Op::identity;
@@ -234,6 +244,19 @@ chain_scan_kernel(const Io io, int n, int tiles,
     warp_part = op(warp_part, group);
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[r + j] = op(before, v[r + j]);
+    if constexpr (Io::kExclusive) {
+      if (kReverse) {
+        v[r] = v[r + 1];
+        v[r + 1] = v[r + 2];
+        v[r + 2] = v[r + 3];
+        v[r + 3] = before;
+      } else {
+        v[r + 3] = v[r + 2];
+        v[r + 2] = v[r + 1];
+        v[r + 1] = v[r];
+        v[r] = before;
+      }
+    }
   }
   // the warps: each one's part before it in walk order, and the tile's
   if (lane == 0) warp_tot[warp] = warp_part;
@@ -272,9 +295,9 @@ chain_scan_kernel(const Io io, int n, int tiles,
     const int e = striped<kRun>(r);
     const int s[4] = {op(off, v[r]), op(off, v[r + 1]), op(off, v[r + 2]),
                       op(off, v[r + 3])};
-    io.store(base + e, lo + e, kVec && e + 4 <= lim,
-             min(max(lim - e, 0), 4), s, kept[r / 4],
-             slots + (r / 4) * kChainThreads, kStride);
+    rio.store(base + e, lo + e, kVec && e + 4 <= lim,
+              min(max(lim - e, 0), 4), s, kept[r / 4],
+              slots + (r / 4) * kChainThreads, kStride);
   }
   // the last CTA: every CTA has read the epoch; move it on, none done
   if (threadIdx.x == 0 && done == gridDim.x - 1) {

@@ -15,8 +15,8 @@
 //
 // Design (K6, rank_mask_kernel): one CTA of 1024 threads per row, walked
 // by lzs::row_scan (scan.cuh): tiles of 1024 consecutive elements, each
-// scanned across the CTA, a carry threading the tiles together. K4
-// ext_breaks (extend.cu) is another load/store policy of the same walk.
+// scanned across the CTA, a carry threading the tiles together (the last
+// kernel on this walk).
 //
 // Design (K7-K9, chain_scan_kernel: one template, instantiated as sum
 // forward (K9), max forward (K8) and min backward (K7)): the callers give
@@ -30,8 +30,8 @@
 // pads the row's ragged end. The kernel is lzs::chain_scan_kernel of
 // chain.cuh (its comment has the design), through CopyIo: each group of
 // 4 is read from `in` (one 16-byte load where the row is aligned) and its
-// scan written to `out`. K5 (extend.cu) is another policy of the same
-// kernel.
+// scan written to `out`. K4 and K5 (extend.cu) are other policies of the
+// same kernel.
 #include "chain.cuh"
 
 namespace {
@@ -42,6 +42,9 @@ struct CopyIo {
   int* out;
   struct Kept {};
   static constexpr int kPlanes = 0;
+  static constexpr bool kExclusive = false;
+
+  __device__ __forceinline__ CopyIo bind(int64_t) const { return *this; }
 
   __device__ __forceinline__ void load(int64_t at, int, bool vec, int count,
                                        int pad, int* v, Kept&, const int4*,

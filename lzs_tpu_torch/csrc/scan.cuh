@@ -1,11 +1,11 @@
 // Block-wide scans and the launch plumbing shared by the port's kernels.
 //
 // row_scan walks one block row with one CTA (K6 rank_mask in rowscan.cu,
-// K4 ext_breaks in extend.cu): the row is cut into
-// tiles of blockDim.x elements, each tile is scanned across the CTA
-// (block_scan: warp shuffles, then one warp over the warp totals), and a
-// carry threads the tiles together. blockDim.x is a multiple of 32, at
-// most 1024.
+// its only user; the other row scans are chained, chain.cuh): the row is
+// cut into tiles of blockDim.x elements, each tile is scanned across the
+// CTA (block_scan: warp shuffles, then one warp over the warp totals), and
+// a carry threads the tiles together. blockDim.x is a multiple of 32, at
+// most 1024. block_scan also serves cand.cu and sync.cu.
 #pragma once
 
 #include <climits>

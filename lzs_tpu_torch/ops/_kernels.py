@@ -49,7 +49,7 @@ _SIGNATURES = {
     "lzs_rank_mask_rows": [_P, _P, _I, _I],
     "lzs_gather_rows": [_P, _P, _P, _I, _I, _I],
     "lzs_perk_level": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
-    "lzs_ext_breaks": [_P, _P, _P, _P, _I, _I, _I],
+    "lzs_ext_breaks": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I],
     "lzs_ext_fold": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I],
     "lzs_walk_tables": [_P, _P, _P, _I, _I],
     "lzs_walk_entries": [_P, _P, _I, _I],

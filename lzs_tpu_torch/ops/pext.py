@@ -7,11 +7,12 @@ Port of six ``lzs_tpu.ops.pext`` roll-scan kernels: ``cummax_rows``
 ``_rank_kernel``) launch ``csrc/rowscan.cu`` on a CUDA tensor;
 ``ext_breaks`` (K4, ``_break_kernel``) and ``ext_fold`` (K5,
 ``_fold_kernel``) launch ``csrc/extend.cu``. On a CPU tensor each runs
-the plain version beside it. K5, K7, K8 and K9 are one chained scan (a
-CTA per ``cumsum_tile``-wide tile, the tiles' partial results chained
+the plain version beside it. K4, K5, K7, K8 and K9 are one chained scan
+(a CTA per ``cumsum_tile``-wide tile, the tiles' partial results chained
 through status words in one launch), instantiated as max forward (K8,
 and K5 with its prologue in the load and its epilogue in the store), min
-backward and sum forward.
+backward (K7, and K4, whose store takes the exclusive min) and sum
+forward.
 
 Callers: the emission-unit ownership scans (tokenize), the run-end
 pinning of the match extension and its probe tier (sortmatch:
@@ -57,7 +58,7 @@ def rank_mask_plain(mask: torch.Tensor) -> torch.Tensor:
 
 def _chain(kernel: _kernels.Kernel, operands: dict[str, torch.Tensor],
            *scalars: int) -> torch.Tensor:
-    """Launch a chained row scan (K5, K7-K9) over int32[B, N] operands:
+    """Launch a chained row scan (K4, K5, K7-K9) over int32[B, N] operands:
     ``cumsum_tile`` elements per CTA, status words from ``stream_words``
     (after the kernel's own ``scalars``)."""
     v = next(iter(operands.values()))
@@ -155,8 +156,8 @@ def ext_breaks(score: torch.Tensor, off: torch.Tensor, n: torch.Tensor,
     check_npos(score.shape[-1])
     if _kernels.on_cpu(score, off, n):
         return ext_breaks_plain(score, off, n, cap)
-    return _kernels.launch_rows(_kernels.EXT_BREAKS,
-                                {"score": score, "off": off, "n": n}, cap)
+    return _chain(_kernels.EXT_BREAKS, {"score": score, "off": off, "n": n},
+                  cap)
 
 
 def fold_prologue(packed: torch.Tensor, ext_h: torch.Tensor,

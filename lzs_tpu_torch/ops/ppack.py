@@ -6,9 +6,10 @@ end-marker splice of ``lzs_tpu.ops.bitpack.pack_bits_batch``. The TPU
 form builds dense words with sorts because XLA scatters serialize there;
 here every unit ORs its 64-bit anchored window straight into its word
 and the next one. On a CUDA tensor ``pack_rows`` launches
-``csrc/pack.cu`` (one block per row, the row's words in shared memory);
-on a CPU tensor it runs ``pack_rows_plain``, which adds the windows with
-``scatter_add_``: units never share bits, so the sum is the OR.
+``csrc/pack.cu`` (a row split over a cluster of up to 8 CTAs, each
+segment's words in its shared memory); on a CPU tensor it runs
+``pack_rows_plain``, which adds the windows with ``scatter_add_``: units
+never share bits, so the sum is the OR.
 
 MSB-first accumulation is the reference's 32-bit bit queue
 (lzs-compression.c:303-313).
@@ -21,6 +22,7 @@ import torch
 from . import _kernels
 
 _M32 = 0xFFFFFFFF
+MAX_UNITS = 1 << 16   # the kernel's cluster: 8 segments of 8192 units
 
 
 def _window(v: torch.Tensor, start: torch.Tensor, width):
@@ -83,13 +85,17 @@ def pack_rows(value: torch.Tensor, width: torch.Tensor, cap_bytes: int,
 
     Returns (comp uint8[B, cap_bytes], total_bits int32[B], offs int32[B,
     M] exclusive bit offsets). ``end_marker=(value, bits)`` appends one
-    trailing unit after the last one (counted in total_bits).
+    trailing unit after the last one (counted in total_bits). The kernel
+    takes M <= MAX_UNITS and cap_bytes a multiple of 4.
     """
     b, m = value.shape
     if m == 0:
         raise ValueError("pack_rows: rows hold no units")
     if _kernels.on_cpu(value, width):
         return pack_rows_plain(value, width, cap_bytes, end_marker)
+    if m > MAX_UNITS or cap_bytes % 4:
+        raise ValueError(f"pack_rows: M={m} (at most {MAX_UNITS}), "
+                         f"cap_bytes={cap_bytes} (a multiple of 4)")
     _kernels.check(value, "value", torch.int32)
     _kernels.check(width, "width", torch.int32, (b, m))
     comp = torch.empty((b, cap_bytes), dtype=torch.uint8, device=value.device)

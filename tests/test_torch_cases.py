@@ -1,5 +1,6 @@
 """Seeded edge inputs for the row scans (K7-K9), the match extension's
-fold (K5), the token walk's entries (K12), sync (K16) and expand (K17).
+breaks (K4) and fold (K5), the token walk's entries (K12), the bit pack
+(K14+K15), sync (K16) and expand (K17).
 
 tests/test_torch_scan.py, tests/test_torch_walk.py,
 tests/test_torch_sync.py and tests/test_torch_expand.py hold the port's
@@ -18,7 +19,17 @@ far end, across every piece. Fold rows are (score, off, n, ext_h) for
 ext_breaks and then ext_fold: capped runs (score == cap, one offset) that
 cross every multiple of 4096 (the chained scan's tiles), one that spans
 two whole tiles, heads whose cap + ext_h lands at 0xFFFF, past it, or
-wraps int32, rows that end in a capped head, and a ragged width. Walk rows
+wraps int32, rows that end in a capped head, and a ragged width. Breaks
+rows are the same (score, off, n, ext_h) for K4 alone: capped runs whose
+head and next break lie in different 4096- and 8192-element tiles (the
+chained scan's two tile forms), heads at the start of a lane's group of
+4, of a lane 0 group (128 elements), of a warp's part (512 and 1024) and
+of a tile whose predecessor is capped with another offset (and, beside
+them, predecessors with the same offset: no head), n past the row and n =
+0. Pack units are (value, width) rows for pack_bits_batch: stretches of
+width 0 over every 4096- and 8192-unit segment edge, a whole segment of
+them and a whole row, totals that end on a word boundary or put the end
+marker across one. Walk rows
 are token
 steps (0 and -1 count as 1) whose chains enter most tiles, skip whole
 runs of 16 and of 128 tiles (the entry kernel's ring slot and its ring)
@@ -120,6 +131,76 @@ def fold_rows(seed, b, w):
     n[::3] = w + 20
     n[1:2] = w + 20
     return tuple(a.astype(np.int32) for a in (score, off, n, ext_h))
+
+
+#: where a head starts a lane's group, a lane 0 group (128), a warp's
+#: part at either tile form (512, 1024) and a tile (4096, 8192); the
+#: element before each is capped too, with another offset
+HEAD_STARTS = (4, 132, 128, 512, 1024, 4096, 8192)
+
+
+def breaks_rows(seed, b, w):
+    """(score, off, n, ext_h) int32 rows of width ``w`` for ext_breaks at
+    cap FOLD_CAP, from fold_rows' random part: in each row r a capped run
+    of one offset from 4096 k - 100 to 8192 (k + 1) + 50 + r, k = r % 3 +
+    1, where the row holds it (its head and its next break in different
+    tiles of either form); a head at each multiple of HEAD_STARTS[r % 7]
+    past the run (past 0 where there is none) whose predecessor is capped
+    with another offset, and at the 2 positions before each a capped
+    predecessor with the same offset. Rows 0 and 2 have n past the row,
+    row 1 n = 0."""
+    score, off, n, ext_h = fold_rows(seed, b, w)
+    for r in range(b):
+        k = r % 3 + 1
+        lo, hi = 4096 * k - 100, 8192 * (k + 1) + 50 + r
+        if hi < w:
+            score[r, lo - 1:hi + 1] = FOLD_CAP
+            off[r, lo - 1] = 40
+            off[r, lo:hi] = 41                  # a head at lo
+            score[r, hi] = 0                    # its next break
+        step = HEAD_STARTS[r % len(HEAD_STARTS)]
+        first = hi + 1 if hi < w else 1
+        for p in range(step * -(-first // step), w, step):
+            score[r, p - 3:p + 2] = FOLD_CAP
+            off[r, p - 3:p] = 30                # same offset: no head
+            off[r, p:p + 2] = 31                # another: a head at p
+    n[0], n[1:2], n[2:3] = w + 20, 0, w + FOLD_CAP
+    return score, off, n, ext_h
+
+
+#: pack segments: a cluster CTA takes 4096 units (8192 in rows past 32768)
+PACK_SEGMENTS = (4096, 8192)
+
+
+def pack_units(seed, b, m, live=1.0):
+    """(value, width) int32[b, m] for pack_bits_batch: widths 4, 9, 11,
+    13, 17, 25 (a share ``live`` of them; 0 elsewhere), values below
+    2^width; width 0 from 300 before to 300 after every multiple of 4096,
+    over the whole segment 8192-12287 in row 1, and over all of row 0; the
+    other rows' totals end 0 (row 2), 23 (row 3: the 9-bit end marker then
+    ends on a word boundary) and 28 bits (row 4: the marker straddles a
+    word) into a word, by the widths of their last units."""
+    rng = np.random.default_rng(seed)
+    widths = np.array([4, 9, 11, 13, 17, 25])
+    w = widths[rng.integers(0, len(widths), (b, m))]
+    w[rng.random((b, m)) >= live] = 0
+    for k in range(min(PACK_SEGMENTS), m, min(PACK_SEGMENTS)):
+        w[:, max(k - 300, 0):k + 300] = 0
+    if b > 1:
+        w[1, 8192:12288] = 0
+    w[0] = 0
+    for r, rest in ((2, 0), (3, 23), (4, 28)):
+        if r < b and m >= 8:
+            w[r, -4:] = 4
+            w[r, -8:-4] = 0
+            # 4 live units of 4 to 13 bits move the total to `rest`
+            need = (rest - int(w[r, :-4].sum()) - 16) % 32
+            for j in range(4):
+                add = min(need, 9)
+                w[r, m - 4 + j] += add
+                need -= add
+    v = rng.integers(0, 1 << 25, (b, m)) & ((1 << w) - 1)
+    return v.astype(np.int32), w.astype(np.int32)
 
 
 #: tiles of the walk skipped by a long step: past one ring slot of the
@@ -382,6 +463,50 @@ def test_fold_rows_properties(b, w):
     assert (full > I32.max).any()              # cap + ext_h wraps
     assert (capped[:, -1] == 1).any()          # a run reaches the row's end
     assert w % 4 and ((i[None] < n[:, None]) & (capped == 0)).any()
+
+
+@pytest.mark.parametrize("b,w", [(7, 32768), (4, 16401), (33, 4099)])
+def test_breaks_rows_properties(b, w):
+    score, off, n, _ = (torch.from_numpy(a) for a in breaks_rows(w, b, w))
+    packed = pext.ext_breaks_plain(score, off, n, FOLD_CAP)
+    head, capped = (packed >> 2) & 1, (packed >> 1) & 1
+    nxt = (packed >> 3) + torch.arange(w) + 1       # the next break
+    assert n[0] > w and n[1] == 0 and not capped[1].any()
+    runs = heads = 0
+    for r in range(b):
+        k = r % 3 + 1
+        lo, hi = 4096 * k - 100, 8192 * (k + 1) + 50 + r
+        if hi < w and r != 1:
+            # the run's head and its next break: different tiles of both
+            # forms
+            assert head[r, lo] and capped[r, lo - 1]
+            assert int(nxt[r, lo]) // 8192 > lo // 8192
+            runs += 1
+        step = HEAD_STARTS[r % len(HEAD_STARTS)]
+        starts = torch.arange(step, max(w, step), step)
+        starts = starts[(starts > hi) | (hi >= w)]
+        starts = starts[capped[r, starts] == 1]
+        if r != 1:
+            assert head[r, starts].all()
+            assert capped[r, starts - 1].all()      # another offset
+            assert not head[r, starts - 1].any()    # the same offset
+            heads += len(starts) > 0
+    assert runs or w < 20000
+    assert heads >= min(b - 1, 5)
+
+
+@pytest.mark.parametrize("b,m,live", [(6, 32768, 0.3), (5, 32767, 1.0),
+                                      (2, 65536, 0.2)])
+def test_pack_units_properties(b, m, live):
+    v, w = pack_units(m, b, m, live)
+    assert (w >= 0).all() and (w <= 25).all()
+    assert (v >= 0).all() and (v < (1 << w)).all()
+    total = w.sum(axis=1)
+    assert total[0] == 0 and not w[1, 8192:12288].any()
+    assert [int(t) % 32 for t in total[2:5]] == [0, 23, 28][:b - 2]
+    for k in range(4096, m, 4096):
+        assert not w[:, k - 300:k + 300].any()
+    assert (total + 9 + 8 <= 1 << 16).all() or m * live < 40000
 
 
 @pytest.mark.parametrize("b,ntiles", [(3, 1), (4, 600)])

@@ -21,8 +21,11 @@ positions over one to four CTAs of a cluster, 16-aligned and unaligned
 rows; expand: fewer rows than SMs and more; the row cumsum: both tile
 forms, values that wrap, 1 to 1024 rows up to 2^20 wide, and a CUDA
 graph replay; the row max and suffix min on rows at INT_MIN and INT_MAX
-in the same forms, and the three chained scans interleaved on one
-stream; the walk's entries: 1 to 300 rows of 1 to 6272 tiles,
+in the same forms, and the five chained scans interleaved on one
+stream; the match extension's breaks (K4) on runs across tiles and heads
+at lane, warp and tile starts; the bit pack over clusters of 1 to 8 CTAs
+(1 to 65536 units, zero-width segments, streams past cap_bytes); the
+walk's entries: 1 to 300 rows of 1 to 6272 tiles,
 skips past a ring slot and a ring, chains past the row); the codec's
 bytes (also a 256-block container), the probe's run lengths and the raw
 decoder's output on the card are compared with the CPU's.
@@ -39,9 +42,10 @@ from lzs_tpu_torch.ops import (_kernels, decode, decode2, encode, pcand,
                                pexpand, pext, pgather, ppack, psync, pwalk,
                                sortmatch)
 
-from test_torch_cases import (FOLD_CAP, WALK_SKIPS, cumsum_rows,
-                              expand_batch, fold_rows, hand_fill, minmax_rows,
-                              sync_batch, sync_kwargs, walk_steps)
+from test_torch_cases import (FOLD_CAP, WALK_SKIPS, breaks_rows,
+                              cumsum_rows, expand_batch, fold_rows,
+                              hand_fill, minmax_rows, pack_units, sync_batch,
+                              sync_kwargs, walk_steps)
 
 pytestmark = pytest.mark.gpu
 
@@ -169,13 +173,22 @@ def _fold_inputs(seed, b, w, dev):
     return pext.ext_breaks_plain(score, off, n, FOLD_CAP), ext_h, score
 
 
+def _breaks_inputs(seed, b, w, dev):
+    """The seeded breaks rows on the card as ext_breaks takes them:
+    (score, off, n)."""
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in breaks_rows(seed, b, w)[:3])
+
+
 def test_chain_scans_interleave(cuda):
-    """K7, K8, K9 and K5 alternate on one stream, on two shapes (two tile
-    forms; K5 at the encoder's 256 x 32768), sharing its status words and
-    epoch: every result exact, the epoch moved on by four per round."""
+    """K7, K8, K9, K5 and K4 alternate on one stream, on two shapes (two
+    tile forms; K5 and K4 at the encoder's 256 x 32768), sharing its status
+    words and epoch: every result exact, the epoch moved on by five per
+    round."""
     few = torch.from_numpy(minmax_rows(1, 4, 200704)).to(cuda)
     many = torch.from_numpy(minmax_rows(2, 256, 33792)).to(cuda)
     fold = _fold_inputs(3, 256, 32768, cuda)
+    breaks = _breaks_inputs(4, 256, 32768, cuda)
     order = ("rcummin", "cummax", "cumsum")
     for v in (few, many):                    # the words at their size
         for scan in order:
@@ -185,29 +198,36 @@ def test_chain_scans_interleave(cuda):
         got = [SCANS[scan][0](v)
                for scan, v in zip(order, (first, second, first))]
         got.append(pext.ext_fold(*fold, FOLD_CAP))
+        got.append(pext.ext_breaks(*breaks, FOLD_CAP))
         _equal(got, [SCANS[scan][1](v)
                      for scan, v in zip(order, (first, second, first))]
-               + [pext.ext_fold_plain(*fold, FOLD_CAP)])
-        assert _epoch(cuda) == epoch + 4
+               + [pext.ext_fold_plain(*fold, FOLD_CAP),
+                  pext.ext_breaks_plain(*breaks, FOLD_CAP)])
+        assert _epoch(cuda) == epoch + 5
 
 
 def _scan_call(scan, seed, dev):
     """A chained scan's call and its plain version on its seeded rows: K7-K9
-    on 4 x 200704, K5 (``fold``) on 4 x 32768 fold rows."""
+    on 4 x 200704, K5 (``fold``) and K4 (``breaks``) on 4 x 32768 fold
+    and breaks rows."""
     if scan == "fold":
         args = _fold_inputs(seed, 4, 32768, dev)
         return (lambda: pext.ext_fold(*args, FOLD_CAP),
                 lambda: pext.ext_fold_plain(*args, FOLD_CAP))
+    if scan == "breaks":
+        args = _breaks_inputs(seed, 4, 32768, dev)
+        return (lambda: pext.ext_breaks(*args, FOLD_CAP),
+                lambda: pext.ext_breaks_plain(*args, FOLD_CAP))
     wrapper, plain, _, rows = SCANS[scan]
     v = torch.from_numpy(rows(seed, 4, 200704)).to(dev)
     return lambda: wrapper(v), lambda: plain(v)
 
 
-@pytest.mark.parametrize("scan", [*SCANS, "fold"])
+@pytest.mark.parametrize("scan", [*SCANS, "fold", "breaks"])
 def test_cumsum_epoch_wrap(cuda, scan):
     """The launch of the last 30-bit tag clears the status words and
-    starts the epoch over; each chained scan (K5 too) stays exact on both
-    sides of it."""
+    starts the epoch over; each chained scan (K5 and K4 too) stays exact on
+    both sides of it."""
     call, plain = _scan_call(scan, 7, cuda)
     want = plain()
     _equal([call()], [want])
@@ -348,6 +368,36 @@ def test_ext_fold_kernel_forms(cuda, b, w, shift):
     assert _kernels.EXT_FOLD.launches == before + 1
     _equal([got], [pext.ext_fold_plain(*args, FOLD_CAP)])
     assert _epoch(cuda) == epoch + 1
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("b,w", [(256, 32768), (1, 32768), (7, 32768),
+                                 (4, 16401), (33, 4099), (131, 4097), (2, 5),
+                                 (1, 1)])
+def test_ext_breaks_kernel_forms(cuda, b, w, shift):
+    """K4 on the seeded breaks rows (runs whose head and next break lie in
+    different tiles of both forms; heads at lane, lane 0, warp and tile
+    starts after a capped predecessor with another offset, and positions
+    after one with the same offset; n past the row and n = 0; the fold
+    rows' runs over every 4096-element tile boundary): the encoder's 256 x
+    32768 (the 8192 tile), one row (4096), ragged widths, rows 4 bytes past
+    a 16-byte boundary (shift: scalar loads and stores). Each call is one
+    launch and moves the chained scans' epoch on by one."""
+    args = _breaks_inputs(w, b, w, cuda)
+    if shift:
+        args = tuple(_misaligned(a) if a.dim() == 2 else a for a in args)
+    sms = _kernels.sm_count(cuda.index)
+    wide = b * -(-w // pext.SUM_TILES[1]) >= 4 * sms
+    assert pext.cumsum_tile(b, w, sms) == pext.SUM_TILES[wide]
+    pext.ext_breaks(*args, FOLD_CAP)         # the words at their size
+    epoch = _epoch(cuda)
+    before = _kernels.EXT_BREAKS.launches
+    got = pext.ext_breaks(*args, FOLD_CAP)
+    assert _kernels.EXT_BREAKS.launches == before + 1
+    _equal([got], [pext.ext_breaks_plain(*args, FOLD_CAP)])
+    assert _epoch(cuda) == epoch + 1
+    if w > 4096:
+        assert ((got & 1) != 0).any() and ((got & 4) != 0).any()
 
 
 @pytest.mark.parametrize("b,w", [(1, 1), (33, 1000), (5, 1025),
@@ -660,7 +710,8 @@ def test_raw_decode_on_card_equals_cpu(cuda):
 
 
 @pytest.mark.parametrize("end_marker", [None, END])
-@pytest.mark.parametrize("b,m", [(1, 1), (3, 1000), (2, 32768)])
+@pytest.mark.parametrize("b,m", [(1, 1), (3, 1000), (2, 32768), (256, 32768),
+                                 (1, 65536)])
 def test_pack_kernel(cuda, end_marker, b, m):
     rng = np.random.default_rng(m)
     widths = np.array([0, 0, 4, 9, 11, 13, 17, 25])
@@ -671,6 +722,43 @@ def test_pack_kernel(cuda, end_marker, b, m):
     vt, wt = torch.from_numpy(v).to(cuda), torch.from_numpy(w).to(cuda)
     _equal(ppack.pack_rows(vt, wt, cap, end_marker),
            ppack.pack_rows_plain(vt, wt, cap, end_marker))
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("end_marker", [None, END])
+@pytest.mark.parametrize("b,m,live", [(6, 32768, 0.3), (5, 32767, 1.0),
+                                      (2, 65536, 0.2), (256, 32768, 0.3),
+                                      (1, 65536, 0.5), (7, 4099, 1.0)])
+def test_pack_kernel_cases(cuda, end_marker, b, m, live, shift):
+    """The seeded pack units (zero-width stretches over every 4096-unit
+    segment edge, a zero segment and a zero row, totals that end a word or
+    put the end marker across one) over clusters of 1 to 8 CTAs, at the
+    encoder's 256 x 32768 and the packer's widest 65536 units, cap_bytes
+    65536; rows 4 bytes past a 16-byte boundary (shift: scalar loads).
+    One launch each."""
+    v, w = (torch.from_numpy(a).to(cuda) for a in pack_units(m, b, m, live))
+    if shift:
+        v, w = _misaligned(v), _misaligned(w)
+    before = _kernels.PACK.launches
+    got = ppack.pack_rows(v, w, 1 << 16, end_marker)
+    assert _kernels.PACK.launches == before + 1
+    _equal(got, ppack.pack_rows_plain(v, w, 1 << 16, end_marker))
+    assert int(got[1][0]) == (9 if end_marker else 0)
+
+
+@pytest.mark.parametrize("cap", [8, 100, 4000])
+def test_pack_kernel_past_cap(cuda, cap):
+    """Streams longer than cap_bytes (widths 25 and 17, zero-width units
+    between): windows whose first or second word lies past cap_bytes / 4
+    are dropped, as the plain version drops them."""
+    rng = np.random.default_rng(cap)
+    w = rng.choice([0, 17, 25], (3, 20000)).astype(np.int32)
+    v = (rng.integers(0, 1 << 25, w.shape) & ((1 << w) - 1)).astype(np.int32)
+    vt, wt = torch.from_numpy(v).to(cuda), torch.from_numpy(w).to(cuda)
+    for end_marker in (None, END):
+        got = ppack.pack_rows(vt, wt, cap, end_marker)
+        _equal(got, ppack.pack_rows_plain(vt, wt, cap, end_marker))
+        assert (got[1] > 8 * cap).all()
 
 
 def _units(dev, npos, datas, span):
@@ -800,9 +888,10 @@ def test_codec_on_card_equals_cpu(cuda):
         blob = gpu.compress(data)
         counts = _kernels.launch_counts()
         assert {k: counts[k] for k in ("perk_level", "ext_breaks",
-                                       "ext_fold", "walk_descent")} == {
+                                       "ext_fold", "walk_descent",
+                                       "pack")} == {
             "perk_level": 11, "ext_breaks": 1, "ext_fold": 1,
-            "walk_descent": 1}
+            "walk_descent": 1, "pack": 1}
         assert blob == cpu.compress(data)
         assert gpu.decompress(blob) == data
         assert gpu.compress(b"") == cpu.compress(b"")
@@ -821,6 +910,12 @@ def test_wrappers_reject_bad_operands(cuda):
         ppack.pack_rows(v, v.cpu(), 64)
     with pytest.raises(ValueError, match="no units"):
         ppack.pack_rows(v[:, :0], v[:, :0], 64)
+    wide = torch.zeros((1, ppack.MAX_UNITS + 1), dtype=torch.int32,
+                       device=cuda)
+    with pytest.raises(ValueError, match="at most"):
+        ppack.pack_rows(wide, wide, 64)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ppack.pack_rows(v, v, 62)
     with pytest.raises(ValueError):
         pexpand.expand_records(v, v[:, 0].contiguous(), 1 << 20)
     with pytest.raises(ValueError, match="multiple of 128"):

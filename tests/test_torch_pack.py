@@ -16,6 +16,8 @@ from lzs_tpu import spec
 from lzs_tpu.ops import bitpack as jbitpack
 from lzs_tpu_torch.ops import bitpack, ppack
 
+from test_torch_cases import pack_units
+
 END = (spec.END_MARKER_VALUE, spec.END_MARKER_BITS)
 
 
@@ -34,12 +36,26 @@ def _cap(m: int) -> int:
     return (m * 25 // 8 + 16) & ~3
 
 
+#: (b, m) -> share of live widths: tests/test_torch_cases.py's pack units
+#: (zero-width stretches over the kernel's 4096- and 8192-unit segment
+#: edges, a zero segment and a zero row, totals that end a word or put the
+#: end marker across one), which the gpu tests feed to the kernel too, at
+#: cap_bytes 65536 (the JAX packer's 2^14 words), where the streams keep
+#: the packer's slack
+PACK_CASES = {(6, 32768): 0.3, (5, 32767): 1.0, (2, 65536): 0.2}
+
+
 @pytest.mark.parametrize("end_marker", [None, END], ids=["plain", "end"])
-@pytest.mark.parametrize("b,m,zero_rows", [(4, 512, (1,)), (2, 1000, ()),
-                                           (1, 64, (0,))])
+@pytest.mark.parametrize("b,m,zero_rows", [
+    (4, 512, (1,)), (2, 1000, ()), (1, 64, (0,)),
+    *[(b, m, "cases") for b, m in PACK_CASES]])
 def test_pack_bits_batch_matches_jax(end_marker, b, m, zero_rows):
-    v, w = _units(b * 31 + m, b, m, zero_rows)
-    cap = _cap(m)
+    if zero_rows == "cases":
+        v, w = pack_units(m, b, m, PACK_CASES[b, m])
+        cap = 1 << 16
+    else:
+        v, w = _units(b * 31 + m, b, m, zero_rows)
+        cap = _cap(m)
     want = jbitpack.pack_bits_batch(jnp.asarray(v), jnp.asarray(w), cap,
                                     end_marker=end_marker)
     got = bitpack.pack_bits_batch(torch.from_numpy(v), torch.from_numpy(w),

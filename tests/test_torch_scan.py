@@ -27,7 +27,8 @@ from lzs_tpu.ops import sortmatch as jsm
 from lzs_tpu_torch import spec as tspec
 from lzs_tpu_torch.ops import pext, sortmatch
 
-from test_torch_cases import FOLD_CAP, cumsum_rows, fold_rows, minmax_rows
+from test_torch_cases import (FOLD_CAP, breaks_rows, cumsum_rows,
+                              fold_rows, minmax_rows)
 from test_torch_pcand import mixed_blocks
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -115,13 +116,19 @@ def _ext_h(x, n, packed, off, cap=12):
 
 
 #: (b, npos, source): the match search's own (score, off) on mixed blocks,
-#: and the seeded fold rows of tests/test_torch_cases.py (capped runs over
-#: the chained scan's 4096-element tiles, cap + ext_h at and past 0xFFFF,
-#: ragged widths), which the gpu tests feed to the kernels too
+#: and the seeded fold and breaks rows of tests/test_torch_cases.py
+#: (capped runs over the chained scan's 4096- and 8192-element tiles,
+#: heads at lane, warp and tile starts, n past the row and n = 0, cap +
+#: ext_h at and past 0xFFFF, ragged widths), which the gpu tests feed to
+#: the kernels too
+ROWS = {"fold_rows": fold_rows, "breaks_rows": breaks_rows}
 FOLD_CASES = [pytest.param(b, npos, "blocks", id=f"{b}-{npos}")
               for b in (3, 8, 32) for npos in (512, 1024)] + [
     pytest.param(33, 8195, "fold_rows", id="fold_rows-33-8195"),
-    pytest.param(3, 12290, "fold_rows", id="fold_rows-3-12290")]
+    pytest.param(3, 12290, "fold_rows", id="fold_rows-3-12290"),
+    pytest.param(7, 32768, "breaks_rows", id="breaks_rows-7-32768"),
+    pytest.param(4, 16401, "breaks_rows", id="breaks_rows-4-16401"),
+    pytest.param(33, 4099, "breaks_rows", id="breaks_rows-33-4099")]
 
 
 @pytest.mark.parametrize("b,npos,source", FOLD_CASES)
@@ -133,7 +140,7 @@ def test_ext_breaks_and_fold_match_jax_pext(b, npos, source):
             xj, nj)
         score, off = np.array(score), np.array(off)
     else:
-        score, off, n, ext_h = fold_rows(npos, b, npos)
+        score, off, n, ext_h = ROWS[source](npos, b, npos)
     st, ot = torch.from_numpy(score), torch.from_numpy(off)
     want = np.asarray(jpext.ext_breaks(jnp.asarray(score), jnp.asarray(off),
                                        jnp.asarray(n), FOLD_CAP))
