@@ -20,7 +20,8 @@ non-zero):
               that the fill takes, and its step-major form on the same
               inputs beside it), of one
               decode_batch_raw of its raw payload and of the 2^18
-              decode_block is recorded as it runs; each recorded
+              decode_block, and of four scan-engine decodes like phase
+              6's, is recorded as it runs; each recorded
               call is then held against the kernel's plain torch version
               on the same inputs, bitwise, and the first and the last call
               of each set of tensor shapes is timed with CUDA events (so
@@ -29,7 +30,12 @@ non-zero):
               the same function, that call (ext_fold: torch.cummax of its
               prologue, for context); and the library row sort of
               one level's keys, which the level kernel keeps in shared
-              memory, is timed beside that level;
+              memory, is timed beside that level. The scan parse's plain
+              version is a torch loop of some 45 small launches per parse
+              step: its comparison's own call is its one timed call
+              (ONE_SHOT), and the 2^18 stream's scan parse (some 69,000
+              steps, over 30 s of plain loop) is held against engine "bits"
+              and the input instead (PLAIN_TOO_SLOW);
   4. main     BlockCodec(block=32768, device="cuda") compress + decompress
               of the corpus with every launch counter reset just before;
               the round trip must be exact, the raw payload must equal the
@@ -44,12 +50,22 @@ non-zero):
               marker each, and one decode_block at out_cap = 2^18 of a
               C-encoded slice of the corpus just under 256 KiB, which
               must be exact and read its end marker;
-  6. counts   every kernel of each path launched at least once in that
-              path's phase (4 and 5);
-  7. corrupt  a flipped payload byte raises ValueError.
+  6. scan     decode.decode_batch(engine="scan") of the same raw payload,
+              with the counters reset just before: every block must equal
+              its input, and (out, out_len, markers) engine "bits"'s,
+              bitwise; its GB/s (host clock, synchronised) and device ms
+              beside phase 5's raw decode; then the 2^18 slice through
+              decode_block(engine="scan") (exact, its end marker read),
+              two C-encoded short pieces concatenated and decoded with
+              multi_stream (both pieces, 2 markers), and the payload with a
+              max_units that cuts every stream (each block a prefix of its
+              input; phase 3 holds its parse to the plain version);
+  7. counts   every kernel of each path launched at least once in that
+              path's phase (4, 5 and 6);
+  8. corrupt  a flipped payload byte raises ValueError.
 
 Then one JSON line with every kernel's name, route, source, the TPU
-kernel it replaces, its launches in phases 4 and 5, its error, its
+kernel it replaces, its launches in phases 4, 5 and 6, its error, its
 times (kernel, plain, library call or null), its bound and what bounds
 it at its widest input on a counted path ("shape"), the same at every
 shape (``at``), and last the line {"ok": true, "device": {...}}.
@@ -94,7 +110,10 @@ PATH_KERNELS = {
              "walk_descent", "parse"),
     "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
+    "scan": ("scan_parse", "rowscan_cummax", "expand"),
 }
+#: a scan-engine step budget that cuts every stream of the raw payload
+CUT_UNITS = 1000
 
 
 def log(phase: str, msg: str) -> None:
@@ -104,15 +123,21 @@ def log(phase: str, msg: str) -> None:
 def cuda_ms(fn, reps: int = REPS) -> float:
     """Mean milliseconds of fn() on the card over ``reps`` launches."""
     fn()
+    return timed_call(fn, reps)[1]
+
+
+def timed_call(fn, reps: int = 1):
+    """fn()'s last result and the mean milliseconds of ``reps`` calls on
+    the card (CUDA events, no warm-up call)."""
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return out, t0.elapsed_time(t1) / reps
 
 
 def native_codec():
@@ -189,7 +214,18 @@ WRAPPERS = {
     "sync": (psync, "sync_records", psync.sync_records_plain),
     "expand": (pexpand, "expand_records", pexpand.expand_records_plain),
     "parse": (decode2, "_parse_flat", decode2._parse_flat_plain),
+    "scan_parse": (decode, "_parse_scan", decode._parse_scan_plain),
 }
+
+#: kernels whose plain version runs once per comparison, whose own call
+#: is then its timed call: the scan parse's plain loop issues some 45
+#: launches a parse step, seconds at the payload's 17,000-step streams
+ONE_SHOT = {"scan_parse"}
+
+#: (path, kernel) whose recorded calls are held against engine "bits" and
+#: the input instead of the plain version: the 2^18 stream's scan parse,
+#: some 69,000 steps, over 30 s of plain loop on the card
+PLAIN_TOO_SLOW = {("scan 2^18", "scan_parse")}
 
 #: the PyTorch call that computes a kernel's function, where there is one
 #: (timed beside the kernel as a yardstick; the port never calls it): each
@@ -226,7 +262,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 #: the fewest int32 operations the function needs per element of its
 #: first operand (expand: per output byte; gather_big: per query; parse:
-#: per lane-substep), counted from its definition
+#: per lane-substep; scan_parse: per parse step that this run's streams
+#: take, counted as the records with output plus the end markers),
+#: counted from its definition
 #: and not from a kernel's code: a scan 1 (its operator); rank_mask 2
 #: (add, the exclusive difference); gather_big 2 (the clamp); perk_level 37:
 #: the keys 5 (compare, select, max, shift, or), the row sort 14 (a
@@ -242,13 +280,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: record, the source, a load, a store); parse 50 per lane-substep (the
 #: 24-bit window of the two-word register 9, the can test 4, the cheaper
 #: of the two decodes, a run of extension nibbles, 15, the record and the
-#: state update 22)
+#: state update 22); scan_parse 35 per step (the window at the bit
+#: position 3, the input left 1, the head's fields 12 (flag, offset
+#: form, offset, length code, long test, length), its width and the gate
+#: 5, the length cut to the output left 2, the record 4, the state update
+#: 8: bit position, count, mode, offset, markers, done)
 OPS_PER_ELEMENT = {
     "perk_level": 5 + 14 + 18, "ext_breaks": 41, "ext_fold": 17,
     "rank_mask": 2, "gather_big": 2,
     "rowscan_cummax": 1, "rowscan_rcummin": 1, "rowscan_cumsum": 1,
     "walk_tables": 21, "walk_entries": 3 / 128, "walk_descent": 22 / 7,
-    "pack": 8, "sync": 18, "expand": 4, "parse": 50,
+    "pack": 8, "sync": 18, "expand": 4, "parse": 50, "scan_parse": 35,
 }
 
 
@@ -308,8 +350,7 @@ def _compare(name: str, args: tuple, kw: dict, timed: bool) -> dict:
     module, attr, plain = WRAPPERS[name]
     wrapper = getattr(module, attr)
     got = wrapper(*args, **kw)
-    want = plain(*args, **kw)
-    torch.cuda.synchronize()
+    want, plain_once = timed_call(lambda: plain(*args, **kw))
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0
@@ -326,11 +367,14 @@ def _compare(name: str, args: tuple, kw: dict, timed: bool) -> dict:
         return {"max_abs_err": err}
     library = LIBRARY.get(name)
     bytes_ms = 1e3 * _bytes_moved(name, args, kw, got) / MEMORY_BYTES_PER_S
-    elements = got[0].numel() if name == "expand" else _numel(name, args)
+    elements = (got[0].numel() if name == "expand" else
+                _scan_steps(got) if name == "scan_parse" else
+                _numel(name, args))
     ops_ms = 1e3 * OPS_PER_ELEMENT[name] * elements / INT32_OPS_PER_S
     out = {"max_abs_err": err,
            "ms": cuda_ms(lambda: wrapper(*args, **kw)),
-           "plain_ms": cuda_ms(lambda: plain(*args, **kw)),
+           "plain_ms": (plain_once if name in ONE_SHOT else
+                        cuda_ms(lambda: plain(*args, **kw))),
            "library_ms": (cuda_ms(library(*args, **kw))
                           if library else None),
            "bound_ms": max(bytes_ms, ops_ms),
@@ -340,6 +384,33 @@ def _compare(name: str, args: tuple, kw: dict, timed: bool) -> dict:
         out["context"] = {"call": label,
                           "ms": cuda_ms(call(*args, **kw))}
     return out
+
+
+def _scan_steps(outs: tuple) -> int:
+    """The parse steps a scan parse's streams took, counted as its records
+    with output plus its end markers (a zero extension nibble, the one
+    other step without output, is not counted)."""
+    recs, _, markers = outs
+    return int((recs >= 0).sum()) + int(markers.sum())
+
+
+def _scan_against_bits(args: tuple, kw: dict) -> dict:
+    """A scan parse call held against engine "bits" instead of the plain
+    loop (PLAIN_TOO_SLOW): its records, filled and expanded, must give
+    the bits engine's (out, out_len, markers) on the same input, bitwise;
+    its kernel time beside."""
+    recs, out_len, markers = decode._parse_scan(*args, **kw)
+    fill = decode2._filled_records(recs[:, :, None])
+    out, _ = pexpand.expand_records(fill, out_len, kw["out_cap"])
+    want = decode.decode_batch(*args, out_cap=kw["out_cap"],
+                               multi_stream=kw["multi_stream"])
+    if not all(torch.equal(g, w) for g, w in zip(
+            (out, out_len, markers), want, strict=True)):
+        raise AssertionError("scan_parse: the decode differs from engine "
+                             "bits")
+    return {"max_abs_err": 0, "held_against": "engine bits",
+            "steps": _scan_steps((recs, out_len, markers)),
+            "ms": cuda_ms(lambda: decode._parse_scan(*args, **kw))}
 
 
 def _shape_key(args: tuple, kw: dict) -> str:
@@ -384,6 +455,20 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
     with recorded_calls() as calls["raw 2^18"]:
         decode.decode_bytes(native_compress(wide_piece(data)),
                             bitpar.MAX_OUT_CAP, device=device)
+    comp, clen, _, _ = raw_payload(codec, data, device)
+    with recorded_calls() as calls["scan"]:
+        decode.decode_batch(comp, clen, out_cap=BLOCK, engine="scan")
+    with recorded_calls() as calls["scan budget"]:
+        decode.decode_batch(comp, clen, out_cap=BLOCK, engine="scan",
+                            max_units=CUT_UNITS)
+    del comp, clen
+    with recorded_calls() as calls["scan 2^18"]:
+        decode.decode_bytes(native_compress(wide_piece(data)),
+                            bitpar.MAX_OUT_CAP, engine="scan", device=device)
+    with recorded_calls() as calls["scan multi"]:
+        decode.decode_bytes(b"".join(map(native_compress, short_pair(data))),
+                            BLOCK, multi_stream=True, engine="scan",
+                            device=device)
     torch.cuda.synchronize()
     for path, names in PATH_KERNELS.items():
         called = sorted(k for k, c in calls[path].items() if c)
@@ -412,6 +497,16 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
     del got, want
 
     results = {}
+    for path, name in PLAIN_TOO_SLOW:
+        for args, kw in calls[path].pop(name):
+            e = {"path": path, "shape": _shape_key(args, kw), "calls": 1,
+                 "numel": 0, **_scan_against_bits(args, kw)}
+            results.setdefault(name, {"max_abs_err": 0, "at": []})[
+                "at"].append(e)
+            log("kernels", f"{path} {name} ({e['shape']}) x1: its decode "
+                f"equal to engine bits (tolerance 0, bitwise; the plain "
+                f"loop of its {e['steps']} steps is too slow), kernel "
+                f"{e['ms']:.4f} ms")
     for path, by_kernel in calls.items():
         for name, recorded in by_kernel.items():
             # time the first and the last call of each set of tensor
@@ -536,8 +631,15 @@ def wide_piece(data: bytes) -> bytes:
     return data[:bitpar.MAX_OUT_CAP - 1024]
 
 
-def phase_raw(data: bytes, device: torch.device, native) -> dict[str, int]:
-    """The raw-stream decoder on the port's own per-block payload."""
+def short_pair(data: bytes) -> tuple[bytes, bytes]:
+    """Two short slices of the corpus (the multi-stream decode's)."""
+    half = len(data) // 2
+    return data[:1000], data[half:half + 3000]
+
+
+def phase_raw(data: bytes, device: torch.device, native):
+    """The raw-stream decoder on the port's own per-block payload; returns
+    the launch counts and the decode's host-clock ms."""
     native_compress, _ = native
     codec = BlockCodec(block=BLOCK, device=device)
     comp, clen, x, n = raw_payload(codec, data, device)
@@ -606,6 +708,101 @@ def phase_raw(data: bytes, device: torch.device, native) -> dict[str, int]:
     log("raw", f"decode_block of a {len(stream)}-byte C-encoded stream at "
         f"out_cap {bitpar.MAX_OUT_CAP}: {len(piece)} bytes exact, its end "
         f"marker read")
+    return counts, 1e3 * dt
+
+
+def _prefix_equal(out: torch.Tensor, upto: torch.Tensor,
+                  x: torch.Tensor) -> bool:
+    """Each row of ``out`` equals ``x``'s before its ``upto`` bytes."""
+    keep = torch.arange(out.shape[1], device=out.device) < upto[:, None]
+    return torch.equal(torch.where(keep, out, 0), torch.where(keep, x, 0))
+
+
+def phase_scan(data: bytes, device: torch.device, native,
+               raw_ms: float) -> dict[str, int]:
+    """The raw decoder's engine "scan" on the raw payload of phase 5, the
+    2^18 slice, a multi-stream pair and a budget that cuts every
+    stream."""
+    native_compress, _ = native
+    codec = BlockCodec(block=BLOCK, device=device)
+    comp, clen, x, n = raw_payload(codec, data, device)
+    bits = codec.decode_batch_raw(comp, clen)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    got = decode.decode_batch(comp, clen, out_cap=BLOCK, engine="scan")
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    out, out_len, markers = got
+    if not torch.equal(out_len, n) or not _prefix_equal(out, n, x):
+        raise AssertionError("scan decode: bytes differ from the input")
+    if not all(torch.equal(g, w) for g, w in zip(got, bits, strict=True)):
+        raise AssertionError("scan decode differs from engine bits")
+    log("scan", f"decode_batch(engine=\"scan\") of {comp.shape[0]} x "
+        f"{comp.shape[1]} bytes: every block equals its input; (out, "
+        f"out_len, markers) equal engine bits's (tolerance 0, bitwise)")
+
+    def scan():
+        return decode.decode_batch(comp, clen, out_cap=BLOCK, engine="scan")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    max_units = decode.default_max_units(BLOCK)
+    recs, _, marks = decode._parse_scan(comp, clen, out_cap=BLOCK,
+                                        max_units=max_units)
+    longest = int(((recs >= 0).sum(1) + marks).max())
+    del recs
+    parse_ms = cuda_ms(lambda: decode._parse_scan(
+        comp, clen, out_cap=BLOCK, max_units=max_units))
+    log("scan", f"scan decode {len(data) / dt / 1e9:.4f} GB/s "
+        f"({1e3 * dt:.1f} ms, host clock, synchronised), device "
+        f"{cuda_ms(scan):.4f} ms (CUDA events), its parse {parse_ms:.4f} ms "
+        f"(the longest stream {longest} steps, "
+        f"{1e6 * parse_ms / longest:.1f} ns a step); raw decode, engine "
+        f"bits (phase 5): {raw_ms:.1f} ms, host clock")
+    with trace.stage_times() as times:
+        scan()
+    if set(times) != set(trace.SCAN_STAGES):
+        raise AssertionError(f"scan stages timed: {sorted(times)}")
+    log("scan", "scan stages ms: " + ", ".join(
+        f"{s} {1e3 * times[s]:.1f}" for s in trace.SCAN_STAGES))
+
+    cut, cut_len, _ = decode.decode_batch(comp, clen, out_cap=BLOCK,
+                                          engine="scan", max_units=CUT_UNITS)
+    if not bool((cut_len < n).all()) or not _prefix_equal(cut, cut_len, x):
+        raise AssertionError("scan decode at max_units "
+                             f"{CUT_UNITS}: not a cut prefix of the input")
+    log("scan", f"max_units {CUT_UNITS}: every stream cut "
+        f"({int(cut_len.min())}-{int(cut_len.max())} bytes), each a "
+        f"prefix of its input")
+    del comp, out, x, cut
+
+    piece = wide_piece(data)
+    stream = native_compress(piece)
+    out, out_len, markers = decode.decode_block(
+        torch.from_numpy(np.frombuffer(stream, np.uint8).copy()).to(device),
+        torch.tensor(len(stream), dtype=torch.int32, device=device),
+        out_cap=bitpar.MAX_OUT_CAP, engine="scan")
+    if (out[:int(out_len)].cpu().numpy().tobytes() != piece
+            or int(markers) != 1):
+        raise AssertionError("scan decode_block at out_cap 2^18 differs")
+    log("scan", f"decode_block(engine=\"scan\") of the {len(stream)}-byte "
+        f"stream at out_cap {bitpar.MAX_OUT_CAP}: {len(piece)} bytes exact, "
+        f"its end marker read")
+
+    pair = short_pair(data)
+    chain = b"".join(map(native_compress, pair))
+    out, out_len, markers = decode.decode_block(
+        torch.from_numpy(np.frombuffer(chain, np.uint8).copy()).to(device),
+        torch.tensor(len(chain), dtype=torch.int32, device=device),
+        out_cap=BLOCK, multi_stream=True, engine="scan")
+    if (out[:int(out_len)].cpu().numpy().tobytes() != b"".join(pair)
+            or int(markers) != 2):
+        raise AssertionError("scan decode of two streams differs")
+    log("scan", f"multi_stream decode of two C-encoded streams "
+        f"({[len(q) for q in pair]} bytes): both exact, 2 end markers")
     return counts
 
 
@@ -650,14 +847,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     counts = {}
     counts["main"], blob, codec = phase_main(data, device, native)
-    counts["raw"] = phase_raw(data, device, native)
+    counts["raw"], raw_ms = phase_raw(data, device, native)
+    counts["scan"] = phase_scan(data, device, native, raw_ms)
     phase_counts(counts)
     phase_corrupt(blob, codec)
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,
                 "replaces": k.replaces,
-                "launches": counts["main"][k.name] + counts["raw"][k.name],
-                "launches_main": counts["main"][k.name],
-                "launches_raw": counts["raw"][k.name],
+                "launches": sum(c[k.name] for c in counts.values()),
+                **{f"launches_{path}": c[k.name]
+                   for path, c in counts.items()},
                 **timing[k.name]} for k in _kernels.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ Layout (mirrors ``lzs_tpu``):
                    encode.py     encode pipeline + sync records (psync.py)
                    decode2.py    sync-parallel container decoder
                    bitpar.py     per-bit parallel raw-stream decoder
-                   decode.py     raw decode entry points (engine "bits")
+                   decode.py     raw decode entry points, engines
+                                 "bits" and "scan" (the scan parse:
+                                 kernel + plain form)
                    pext.py       row scans and the extension scans
                                  (kernels + plain form)
                    pexpand.py    copy expansion (kernel + plain form)

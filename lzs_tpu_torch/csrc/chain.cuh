@@ -1,5 +1,5 @@
 // The one-pass chained row scan (decoupled look-back) shared by K4 and
-// K5 (extend.cu) and K7-K9 (rowscan.cu).
+// K5 (extend.cu) and K6-K9 (rowscan.cu).
 //
 // chain_scan_kernel<Op, kReverse, kVec, kRun, Io> scans int32 rows of n
 // elements: one CTA of 256 threads per tile of 256 * kRun elements, the
@@ -33,6 +33,7 @@
 //       waits on another; load() and store() read the slots. (K5 read
 //       ext_h only at heads, after `packed` said where they were: two
 //       memory latencies in a row, slower than the whole plane, PERF.md.)
+//       K6 stages a group's 4 mask bytes (a 4-byte copy into the slot).
 //
 //   * A CTA of 256 threads loads its tile with 16-byte loads,
 //     warp-striped: register group g of lane l of warp w holds the 4
@@ -92,6 +93,14 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ void cp_async16(int4* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// A 4-byte copy from device memory to shared memory that does not wait.
+__device__ __forceinline__ void cp_async4(int* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

@@ -72,14 +72,6 @@ constexpr int kBig = 0x3FFFFFFF;
 // group (staged with the group's planes)
 __shared__ int2 k4_before[lzs::kChainWarps];
 
-// A 4-byte copy from device memory to shared memory that does not wait.
-__device__ __forceinline__ void cp_async4(int* smem, const int* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
 // K4: the scanned value of a break (a head, or a position that is not
 // capped) is i << 13 | (score >= cap) << 12 | clip(off, 0, 0x7FF), kBig
 // inside a run; the store takes the exclusive suffix min, the next break
@@ -120,8 +112,8 @@ struct BreaksIo {
     lzs::cp_async16(slot + stride, off + at);
     if (warp_first(i, stride) && i > 0) {
       int2* const before = k4_before + (threadIdx.x >> 5);
-      cp_async4(&before->x, score + at - 1);
-      cp_async4(&before->y, off + at - 1);
+      lzs::cp_async4(&before->x, score + at - 1);
+      lzs::cp_async4(&before->y, off + at - 1);
     }
   }
 

@@ -1,5 +1,5 @@
-// Row scans over int32 (B, N): inclusive prefix max, suffix min and
-// prefix sum, and the exclusive count of a bool mask.
+// Row scans over (B, N) rows: inclusive prefix max, suffix min and prefix
+// sum of int32, and the exclusive count of a bool mask.
 //
 // Replaces: lzs_tpu/ops/pext.py _cummax_kernel (K8, cummax_rows),
 // _rcummin_kernel (K7, rcummin_rows), _cumsum_kernel (K9,
@@ -13,28 +13,42 @@
 // for the mask's count); the scan itself is a few integer operations per
 // element.
 //
-// Design (K6, rank_mask_kernel): one CTA of 1024 threads per row, walked
-// by lzs::row_scan (scan.cuh): tiles of 1024 consecutive elements, each
-// scanned across the CTA, a carry threading the tiles together (the last
-// kernel on this walk).
-//
-// Design (K7-K9, chain_scan_kernel: one template, instantiated as sum
-// forward (K9), max forward (K8) and min backward (K7)): the callers give
-// many rows (the raw decoder's 1024 x 75776 chain rows and 256 x 33792
-// slot rows, the encoder's 256 x 32768, the filled records' 256 x 38656)
-// and few (four 200704-wide chain rows and one 89216-slot row per 2^18
-// decode_block), so a row is not a CTA's: every CTA takes one tile of a
-// row, and the tiles chain their partial results in one pass (a scan with
-// decoupled look-back). A max, a min and a wrapping sum chain alike; each
-// starts from its operator's identity (INT_MIN, INT_MAX, 0), which also
-// pads the row's ragged end. The kernel is lzs::chain_scan_kernel of
-// chain.cuh (its comment has the design), through CopyIo: each group of
-// 4 is read from `in` (one 16-byte load where the row is aligned) and its
-// scan written to `out`. K4 and K5 (extend.cu) are other policies of the
-// same kernel.
+// Design (one template, instantiated as sum forward (K9), max forward
+// (K8), min backward (K7) and the mask's exclusive sum forward (K6)): the
+// callers give many rows (the raw decoder's 1024 x 75776 chain rows and
+// 256 x 33792 slot rows, the encoder's 256 x 32768, the filled records'
+// 256 x 38656, the probe's 256 x 32768 mask) and few (four 200704-wide
+// chain rows and one 89216-slot row per 2^18 decode_block), so a row is
+// not a CTA's: every CTA takes one tile of a row, and the tiles chain
+// their partial results in one pass (a scan with decoupled look-back). A
+// max, a min and a wrapping sum chain alike; each starts from its
+// operator's identity (INT_MIN, INT_MAX, 0), which also pads the row's
+// ragged end. The kernel is lzs::chain_scan_kernel of chain.cuh (its
+// comment has the design). K7-K9 go through CopyIo: each group of 4 is
+// read from `in` (one 16-byte load where the row is aligned) and its scan
+// written to `out`. K6 goes through RankIo: a group is 4 mask bytes, one
+// 4-byte cp.async into shared memory where the row is aligned (a warp
+// copies 128 consecutive bytes; the tile's copies are all in flight
+// before the first is read), each byte counted as 1 where it is not 0,
+// and the store takes the exclusive scan (Io::kExclusive). (K6 walked its row with one CTA
+// of 1024 threads before: a tile of 1024 bytes at a time, three barriers
+// between one tile's loads and the next's.) K4 and K5 (extend.cu) are
+// other policies of the same kernel.
 #include "chain.cuh"
 
 namespace {
+
+// Writes a group's 4 outputs at `at` (one 16-byte store where `vec`).
+__device__ __forceinline__ void store_group(int* out, int64_t at, bool vec,
+                                            int count, const int* s) {
+  if (vec) {
+    *reinterpret_cast<int4*>(out + at) = make_int4(s[0], s[1], s[2], s[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < count) out[at + j] = s[j];
+  }
+}
 
 // K7-K9: read `in`, write `out`; nothing kept between load and store.
 struct CopyIo {
@@ -64,13 +78,7 @@ struct CopyIo {
   __device__ __forceinline__ void store(int64_t at, int, bool vec, int count,
                                         const int* s, const Kept&,
                                         const int4*, int) const {
-    if (vec) {
-      *reinterpret_cast<int4*>(out + at) = make_int4(s[0], s[1], s[2], s[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j < count) out[at + j] = s[j];
-    }
+    store_group(out, at, vec, count, s);
   }
 };
 
@@ -82,21 +90,46 @@ int chain_rows(const int* in, int* out, int rows, int n, int tile,
                                        words, capacity, device, stream);
 }
 
-// Counts the set entries of a bool row and stores the exclusive count.
+// K6: counts the set bytes of a bool row (any byte but 0 counts 1) and
+// stores each element's exclusive count. A 4-byte-aligned group stages
+// its 4 bytes in shared memory (cp.async, plane 0) before any is read: a
+// group that loaded its word into registers unpacked it at once, inside
+// its branch region, so each group's load waited for the one before
+// (PERF.md). A ragged or misaligned group reads device memory alone.
 struct RankIo {
   const unsigned char* mask;
-  int* dst;
-  __device__ int load(int idx) const { return mask[idx] != 0; }
-  __device__ void store(int idx, int, int excl) const { dst[idx] = excl; }
-};
+  int* out;
+  struct Kept {};
+  static constexpr int kPlanes = 1;
+  static constexpr bool kExclusive = true;
 
-__global__ void __launch_bounds__(lzs::kThreads)
-rank_mask_kernel(const unsigned char* __restrict__ mask, int* __restrict__ out,
-                 int n) {
-  const int64_t row = blockIdx.x;
-  RankIo io{mask + row * n, out + row * n};
-  lzs::row_scan<lzs::AddOp, false>(n, io);
-}
+  __device__ __forceinline__ RankIo bind(int64_t) const { return *this; }
+
+  __device__ __forceinline__ void stage(int64_t at, int, int4* slot,
+                                        int) const {
+    lzs::cp_async4(reinterpret_cast<int*>(slot), mask + at);
+  }
+
+  __device__ __forceinline__ void load(int64_t at, int, bool vec, int count,
+                                       int pad, int* v, Kept&,
+                                       const int4* slot, int) const {
+    if (vec) {
+      const unsigned w = *reinterpret_cast<const unsigned*>(slot);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = ((w >> (8 * j)) & 0xFFu) != 0;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = j < count ? __ldg(mask + at + j) != 0 : pad;
+    }
+  }
+
+  __device__ __forceinline__ void store(int64_t at, int, bool vec, int count,
+                                        const int* s, const Kept&,
+                                        const int4*, int) const {
+    store_group(out, at, vec, count, s);
+  }
+};
 
 }  // namespace
 
@@ -122,11 +155,15 @@ LZS_API int lzs_cumsum_rows(const int* in, int* out, int rows, int n,
 }
 
 LZS_API int lzs_rank_mask_rows(const unsigned char* mask, int* out, int rows,
-                               int n, int device, void* stream) {
-  const lzs::DeviceGuard guard(device);
-  rank_mask_kernel<<<rows, lzs::kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(mask, out, n);
-  return static_cast<int>(cudaGetLastError());
+                               int n, int tile, void* words, int capacity,
+                               int device, void* stream) {
+  // a group's 4 bytes are one word where every row starts 4-byte aligned
+  const bool vec = n % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(mask) & 3) == 0 &&
+                   lzs::aligned16(out);
+  return lzs::chain_rows<lzs::AddOp, false>(RankIo{mask, out}, vec, rows, n,
+                                            tile, words, capacity, device,
+                                            stream);
 }
 
 LZS_API const char* lzs_error_string(int err) {

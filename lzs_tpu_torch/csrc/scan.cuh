@@ -1,11 +1,9 @@
 // Block-wide scans and the launch plumbing shared by the port's kernels.
 //
-// row_scan walks one block row with one CTA (K6 rank_mask in rowscan.cu,
-// its only user; the other row scans are chained, chain.cuh): the row is
-// cut into tiles of blockDim.x elements, each tile is scanned across the
-// CTA (block_scan: warp shuffles, then one warp over the warp totals), and
-// a carry threads the tiles together. blockDim.x is a multiple of 32, at
-// most 1024. block_scan also serves cand.cu and sync.cu.
+// block_scan scans one value per thread across a CTA (warp shuffles, then
+// one warp over the warp totals); cand.cu and sync.cu use it. The row
+// scans are chained (chain.cuh). blockDim.x is a multiple of 32, at most
+// 1024.
 #pragma once
 
 #include <climits>
@@ -73,31 +71,6 @@ __device__ __forceinline__ int block_scan(int v, Op op, int* warp_tot,
   *total = warp_tot[nwarps - 1];
   __syncthreads();  // warp_tot is reused by the next call
   return op(before, v);
-}
-
-// Scans one row of n elements with the whole CTA: the row is walked in
-// tiles of blockDim.x consecutive elements (from the row's end when
-// Reverse), each tile is scanned with block_scan and a carry threads the
-// tiles together. For every element idx the same thread first calls
-// io.load(idx), which returns the value to scan, and then
-// io.store(idx, incl, excl) with the inclusive and the exclusive scan in
-// walk order (excl is Op::identity at the walk's first element). An Io
-// may keep what its load read in its own members for the store: each
-// thread owns its copy. Every thread of the CTA must call it.
-template <class Op, bool Reverse, class Io>
-__device__ __forceinline__ void row_scan(int n, Io& io) {
-  __shared__ int warp_tot[32];
-  const Op op{};
-  int carry = Op::identity;
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int k = base + threadIdx.x;
-    const int idx = Reverse ? n - 1 - k : k;
-    const int v = k < n ? io.load(idx) : Op::identity;
-    int excl, total;
-    const int s = block_scan(v, op, warp_tot, &excl, &total);
-    if (k < n) io.store(idx, op(carry, s), op(carry, excl));
-    carry = op(carry, total);
-  }
 }
 
 // Floor division and modulo (JAX's // and % on int32; C++ truncates).

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "lzs_cummax_rows": [_P, _P, _I, _I, _I, _P, _I],
     "lzs_rcummin_rows": [_P, _P, _I, _I, _I, _P, _I],
     "lzs_cumsum_rows": [_P, _P, _I, _I, _I, _P, _I],
-    "lzs_rank_mask_rows": [_P, _P, _I, _I],
+    "lzs_rank_mask_rows": [_P, _P, _I, _I, _I, _P, _I],
     "lzs_gather_rows": [_P, _P, _P, _I, _I, _I],
     "lzs_perk_level": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
     "lzs_ext_breaks": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I],
@@ -59,6 +59,7 @@ _SIGNATURES = {
                       _P, _P, _P],
     "lzs_expand_rows": [_P, _P, _I, _I, _P, _I, _P],
     "lzs_parse_lanes": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    "lzs_scan_parse": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -238,9 +239,14 @@ EXPAND = Kernel("expand", "lzs_expand_rows", "lzs_tpu_torch/csrc/expand.cu",
 # on the device), not a pallas_call
 PARSE = Kernel("parse", "lzs_parse_lanes", "lzs_tpu_torch/csrc/parse.cu",
                "lzs_tpu/ops/decode2.py:132")
+# replaces a lax.scan too: the raw decoder's bit-serial parse (engine
+# "scan")
+SCAN_PARSE = Kernel("scan_parse", "lzs_scan_parse",
+                    "lzs_tpu_torch/csrc/scan_parse.cu",
+                    "lzs_tpu/ops/decode.py:43")
 KERNELS = (PERK_LEVEL, EXT_BREAKS, EXT_FOLD, RANK_MASK, GATHER_BIG,
            CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES, WALK_DESCENT,
-           PACK, SYNC, EXPAND, PARSE)
+           PACK, SYNC, EXPAND, PARSE, SCAN_PARSE)
 
 
 def reset_launches() -> None:

@@ -7,12 +7,12 @@ Port of six ``lzs_tpu.ops.pext`` roll-scan kernels: ``cummax_rows``
 ``_rank_kernel``) launch ``csrc/rowscan.cu`` on a CUDA tensor;
 ``ext_breaks`` (K4, ``_break_kernel``) and ``ext_fold`` (K5,
 ``_fold_kernel``) launch ``csrc/extend.cu``. On a CPU tensor each runs
-the plain version beside it. K4, K5, K7, K8 and K9 are one chained scan
-(a CTA per ``cumsum_tile``-wide tile, the tiles' partial results chained
-through status words in one launch), instantiated as max forward (K8,
-and K5 with its prologue in the load and its epilogue in the store), min
+the plain version beside it. K4-K9 are one chained scan (a CTA per
+``cumsum_tile``-wide tile, the tiles' partial results chained through
+status words in one launch), instantiated as max forward (K8, and K5
+with its prologue in the load and its epilogue in the store), min
 backward (K7, and K4, whose store takes the exclusive min) and sum
-forward.
+forward (K9, and K6, which reads bytes and stores the exclusive sum).
 
 Callers: the emission-unit ownership scans (tokenize), the run-end
 pinning of the match extension and its probe tier (sortmatch:
@@ -57,10 +57,11 @@ def rank_mask_plain(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _chain(kernel: _kernels.Kernel, operands: dict[str, torch.Tensor],
-           *scalars: int) -> torch.Tensor:
-    """Launch a chained row scan (K4, K5, K7-K9) over int32[B, N] operands:
-    ``cumsum_tile`` elements per CTA, status words from ``stream_words``
-    (after the kernel's own ``scalars``)."""
+           *scalars: int, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Launch a chained row scan (K4-K9) over [B, N] operands (the first
+    of ``dtype``, the others int32): ``cumsum_tile`` elements per CTA,
+    status words from ``stream_words`` (after the kernel's own
+    ``scalars``)."""
     v = next(iter(operands.values()))
     b, npos = v.shape if v.dim() == 2 else (0, 0)
     dev = v.device
@@ -68,7 +69,8 @@ def _chain(kernel: _kernels.Kernel, operands: dict[str, torch.Tensor],
     # the kernels' epoch word, then one status word per tile
     words = _kernels.stream_words(dev, 1 + b * -(-npos // tile))
     return _kernels.launch_rows(kernel, operands, *scalars, tile,
-                                words.data_ptr(), words.numel() - 1)
+                                words.data_ptr(), words.numel() - 1,
+                                dtype=dtype)
 
 
 def cummax_rows(v: torch.Tensor) -> torch.Tensor:
@@ -86,7 +88,7 @@ def rcummin_rows(v: torch.Tensor) -> torch.Tensor:
 
 
 def cumsum_tile(b: int, npos: int, sms: int) -> int:
-    """Elements per CTA of the chained row scans (K7-K9) for B rows of N
+    """Elements per CTA of the chained row scans (K4-K9) for B rows of N
     on a card of ``sms`` SMs: SUM_TILES[1] where the rows make at least 4
     such tiles per SM, else SUM_TILES[0], so that few rows still spread
     over the card."""
@@ -113,8 +115,7 @@ def rank_mask(mask: torch.Tensor) -> torch.Tensor:
     bool[B, N] mask, per row (the probe tier's compaction rank)."""
     if _kernels.on_cpu(mask):
         return rank_mask_plain(mask)
-    return _kernels.launch_rows(_kernels.RANK_MASK, {"mask": mask},
-                                dtype=torch.bool)
+    return _chain(_kernels.RANK_MASK, {"mask": mask}, dtype=torch.bool)
 
 
 def ext_breaks_plain(score: torch.Tensor, off: torch.Tensor, n: torch.Tensor,

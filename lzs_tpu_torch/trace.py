@@ -1,7 +1,7 @@
 """Named stage spans of the codec's main path and of the raw decoder.
 
-Every stage of compress, decompress and the raw-stream decode
-(``ops.bitpar``) runs inside ``stage(name)``: a
+Every stage of compress, decompress and the raw-stream decode (both
+engines of ``ops.decode``) runs inside ``stage(name)``: a
 ``torch.profiler.record_function`` span named ``lzs::<name>``, which a
 profiler trace shows on the host and, as a user annotation, over the
 device work the stage launched. With no profiler running a span costs a
@@ -30,6 +30,10 @@ STAGES = ("candidates", "extend", "units", "pack", "sync",
 #: stage names of the raw-stream decode, in pipeline order: per-bit head
 #: fields, the head walk, slot records, record fill, expansion
 RAW_STAGES = ("heads", "walk", "records", "raw_fill", "raw_expand")
+
+#: stage names of the raw decoder's engine "scan": the bit-serial parse,
+#: record fill, expansion
+SCAN_STAGES = ("scan_parse", "scan_fill", "scan_expand")
 
 
 def _sync() -> None:

@@ -5,8 +5,9 @@ cold-cache times, beside the plain version and the library call.
 Records every call of the named kernels' wrappers (``chip_smoke.py``'s
 ``recorded_calls``) in one greedy compress + decompress of the frozen
 8 MiB corpus (path ``main``), one ``decode_batch_raw`` of its raw
-per-block payload (``raw``) and one 2^18 ``decode_block`` of a C-encoded
-slice (``raw 2^18``), and for the first call of each set of shapes times,
+per-block payload (``raw``), one 2^18 ``decode_block`` of a C-encoded
+slice (``raw 2^18``) and one ``decode_batch(engine="scan")`` of the raw
+payload (``scan``), and for the first call of each set of shapes times,
 on that call's own tensors:
 
   event_ms       CUDA-event mean over --reps back-to-back calls, as
@@ -30,7 +31,8 @@ on that call's own tensors:
                  over the kernels a warm call launches
 
 for the kernel's wrapper ("kernel"), its plain torch version ("plain",
-event time over --plain-reps calls) and, where one PyTorch call computes
+event time over --plain-reps calls, none where 0: the scan parse's
+plain loop takes seconds a call) and, where one PyTorch call computes
 the same function (chip_smoke.LIBRARY), that call ("library"); event and
 device time of a context call (chip_smoke.CONTEXT: ext_fold's
 torch.cummax of its prologue) where there is one ("context").
@@ -151,6 +153,11 @@ def record(kernels: list[str], data: bytes, device: torch.device) -> dict:
     with chip_smoke.recorded_calls() as calls["raw 2^18"]:
         decode.decode_bytes(native_compress(chip_smoke.wide_piece(data)),
                             bitpar.MAX_OUT_CAP, device=device)
+    # absent from an earlier tree's chip_smoke.py and decode
+    if "scan_parse" in chip_smoke.WRAPPERS:
+        with chip_smoke.recorded_calls() as calls["scan"]:
+            decode.decode_batch(comp, clen, out_cap=chip_smoke.BLOCK,
+                                engine="scan")
     torch.cuda.synchronize()
     picked = {}
     for path, by_kernel in calls.items():
@@ -212,8 +219,9 @@ def main() -> None:
                                                          flush),
                           "cold_device_ms": device_ms(kernel, args.reps,
                                                       flush, names)},
-               "plain": {"event_ms": event_ms(lambda: plain(*a, **kw),
-                                              args.plain_reps)}}
+               "plain": ({"event_ms": event_ms(lambda: plain(*a, **kw),
+                                               args.plain_reps)}
+                         if args.plain_reps > 0 else None)}
         library = chip_smoke.LIBRARY.get(name)
         if library is not None:
             call = library(*a, **kw)

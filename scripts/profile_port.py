@@ -3,8 +3,10 @@
 
 Runs ``lzs_tpu_torch.BlockCodec(block=32768, device="cuda")`` on the frozen
 8 MiB corpus (``bench.make_corpus``): first ``--reps`` unprofiled
-compress, decompress and raw-decode (``decode_batch_raw`` of the
-codec's own per-block raw payload) calls (host-clock wall, median), then
+compress, decompress, raw-decode (``decode_batch_raw`` of the codec's
+own per-block raw payload, engine "bits") and scan-decode (the same
+payload through ``ops.decode.decode_batch(engine="scan")``) calls
+(host-clock wall, median), then
 one call of each under ``torch.profiler``. From the profiler's Chrome trace it
 keeps only device activities (kernels, memcpy, memset), never the host
 ops that launched them, and merges overlapping intervals, so a parent op
@@ -15,7 +17,8 @@ and its kernels are not counted twice. It prints, per call:
   idle          1 - busy / wall, against the profiled and median walls
   stages        busy ms per pipeline stage: an activity belongs to the
                 ``lzs::<stage>`` span (lzs_tpu_torch.trace: STAGES, and
-                RAW_STAGES for the raw decode) that was open on the host
+                RAW_STAGES and SCAN_STAGES for the raw decode's two
+                engines) that was open on the host
                 when it was launched; "other" is the rest
   top           the device activities with the most summed time
   port_kernels  each of the port's own CUDA kernels (lzs_tpu_torch/csrc):
@@ -49,6 +52,7 @@ sys.path.insert(0, str(ROOT))
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from lzs_tpu_torch import BlockCodec  # noqa: E402
 from lzs_tpu_torch.blocks import pad_blocks  # noqa: E402
+from lzs_tpu_torch.ops import decode  # noqa: E402
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -167,6 +171,13 @@ def main() -> None:
     _, out_len, _ = codec.decode_batch_raw(comp, clen)
     if out_len.tolist() != lens.tolist():
         raise SystemExit("raw decode lengths differ")
+
+    def scan():
+        return decode.decode_batch(comp, clen, out_cap=codec.block,
+                                   engine="scan")
+
+    if scan()[1].tolist() != lens.tolist():
+        raise SystemExit("scan decode lengths differ")
     trace_dir = ROOT / "build" / "profile"
     trace_dir.mkdir(parents=True, exist_ok=True)
     result = {
@@ -179,6 +190,8 @@ def main() -> None:
         "raw_decode": profile_call(
             "raw_decode", lambda: codec.decode_batch_raw(comp, clen),
             args.reps, trace_dir),
+        "scan_decode": profile_call("scan_decode", scan, args.reps,
+                                    trace_dir),
     }
     print(json.dumps(result, indent=1), flush=True)
 

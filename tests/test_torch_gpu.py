@@ -26,12 +26,18 @@ stream; the match extension's breaks (K4) on runs across tiles and heads
 at lane, warp and tile starts; the bit pack over clusters of 1 to 8 CTAs
 (1 to 65536 units, zero-width segments, streams past cap_bytes); the
 walk's entries: 1 to 300 rows of 1 to 6272 tiles,
-skips past a ring slot and a ring, chains past the row); the codec's
+skips past a ring slot and a ring, chains past the row; the mask rank
+(K6) at batch 33 on ragged and misaligned rows and bytes other than 0/1;
+the raw decoder's scan parse at batch 33 on encoded, truncated,
+concatenated and noise streams, with a budget that cuts); the codec's
 bytes (also a 256-block container), the probe's run lengths and the raw
 decoder's output on the card are compared with the CPU's.
 """
 
 import json
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -413,6 +419,39 @@ def test_rank_mask_kernel(cuda, b, w):
     assert _kernels.RANK_MASK.launches == before + 1
 
 
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("w", [1, 3, 4095, 4096, 8193, 32768, 75776])
+def test_rank_mask_kernel_forms(cuda, w, shift):
+    """K6 on the chained scan at batch 33: its tile forms (4096 or 8192
+    bytes a CTA), ragged widths, a base 1 byte past a 4-byte boundary
+    (the scalar loads), an all-set and an all-clear row; one launch."""
+    b = 33
+    gen = torch.Generator(device=cuda).manual_seed(w + shift)
+    flat = torch.rand(b * w + shift, generator=gen, device=cuda) < 0.4
+    mask = flat[shift:].view(b, w)
+    mask[0] = True
+    mask[1] = False
+    assert (mask.data_ptr() % 4 == 0) == (shift == 0)
+    before = _kernels.RANK_MASK.launches
+    got = pext.rank_mask(mask)
+    _equal([got], [pext.rank_mask_plain(mask)])
+    assert _kernels.RANK_MASK.launches == before + 1
+    assert got[0, -1] == w - 1 and not got[1].any()
+
+
+@pytest.mark.parametrize("w", [4095, 4096, 32768])
+def test_rank_mask_kernel_counts_any_nonzero_byte(cuda, w):
+    """A bool mask viewed from bytes other than 0 and 1: each counts 1,
+    as a bool does (the plain version counts the 0/1 mask of the same
+    bytes)."""
+    gen = torch.Generator(device=cuda).manual_seed(w)
+    raw = (torch.rand((33, w), generator=gen, device=cuda) * 4).to(
+        torch.uint8)
+    raw[0, :] = 0xFF
+    _equal([pext.rank_mask(raw.view(torch.bool))],
+           [pext.rank_mask_plain(raw != 0)])
+
+
 @pytest.mark.parametrize("b,w,q,shift", [
     (3, 1, 7, 0), (5, 1000, 333, 0), (1, 1000, 4099, 0), (1, 5, 4, 0),
     (4, 1, 1024, 0), (4, 300, 1024, 1), (256, 8320, 26624, 0),
@@ -709,6 +748,81 @@ def test_raw_decode_on_card_equals_cpu(cuda):
                                        device="cpu"))
 
 
+def _scan_streams(dev, shift):
+    """Batch 33 of raw streams on the card: 12 blocks of the codec's own
+    raw payload (2048-byte blocks), a truncation of each, two blocks
+    concatenated, 8 rows of noise (corrupt streams); rows C bytes wide
+    (C % 4 == 3 and a base 1 byte past a 4-byte boundary when
+    ``shift``)."""
+    block = 2048
+    data = _corpus_like(11, 12 * block)
+    codec = BlockCodec(block=block, device=dev)
+    x, lens = pad_blocks(data, block)
+    comp, clen, _, _, _ = codec.encode_batch(torch.from_numpy(x).to(dev),
+                                             torch.from_numpy(lens).to(dev))
+    rows = [comp[i, :int(clen[i])].cpu().numpy().tobytes()
+            for i in range(len(lens))]
+    rng = np.random.default_rng(5)
+    streams = (rows + [r[:int(rng.integers(0, len(r)))] for r in rows]
+               + [rows[0] + rows[1]]
+               + [rng.integers(0, 256, 900, dtype=np.uint8).tobytes()
+                  for _ in range(8)])
+    c = max(len(r) for r in streams) + 5
+    c += (3 - c % 4) % 4 if shift else (4 - c % 4) % 4
+    buf = np.zeros((len(streams), c), np.uint8)
+    for i, r in enumerate(streams):
+        buf[i, :len(r)] = np.frombuffer(r, np.uint8)
+    flat = torch.zeros(buf.size + shift, dtype=torch.uint8, device=dev)
+    flat[shift:] = torch.from_numpy(buf.reshape(-1)).to(dev)
+    n = torch.tensor([len(r) for r in streams], dtype=torch.int32,
+                     device=dev)
+    return flat[shift:].view(len(streams), c), n
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("max_units", [None, 300])
+@pytest.mark.parametrize("multi", [False, True])
+def test_scan_parse_kernel(cuda, multi, max_units, shift):
+    """The scan parse (csrc/scan_parse.cu) at batch 33 against its plain
+    loop on the same bytes: encoded blocks, truncations, two streams in a
+    row, noise; the default budget and one that cuts; one launch. The
+    plain loop runs on the tensors' CPU copies, where a step's some 45
+    small torch calls cost a third of their launches on the card."""
+    comp, n = _scan_streams(cuda, shift)
+    assert len(n) == 33 and (comp.shape[1] % 4 == 3) == bool(shift)
+    units = decode.default_max_units(8192) if max_units is None \
+        else max_units
+    kw = {"out_cap": 8192, "max_units": units, "multi_stream": multi}
+    before = _kernels.SCAN_PARSE.launches
+    got = decode._parse_scan(comp, n, **kw)
+    assert _kernels.SCAN_PARSE.launches == before + 1
+    _equal([t.cpu() for t in got],
+           decode._parse_scan_plain(comp.cpu(), n.cpu(), **kw))
+    assert got[0].shape == (33, units)
+    if max_units is None:
+        assert int(got[2][24]) == (2 if multi else 1)
+
+
+def test_scan_decode_on_card_equals_cpu(cuda):
+    """decode_batch(engine="scan") on the card: the cpu's bytes, lengths
+    and markers, engine "bits"'s too, through one launch each of the
+    parse, the fill (K8) and the expansion (K17)."""
+    comp, n = _scan_streams(cuda, 0)
+    for multi in (False, True):
+        _kernels.reset_launches()
+        got = decode.decode_batch(comp, n, out_cap=8192, multi_stream=multi,
+                                  engine="scan")
+        counts = _kernels.launch_counts()
+        assert [counts[k] for k in ("scan_parse", "rowscan_cummax",
+                                    "expand")] == [1, 1, 1]
+        assert sum(counts.values()) == 3
+        want = decode.decode_batch(comp.cpu(), n.cpu(), out_cap=8192,
+                                   multi_stream=multi, engine="scan")
+        _equal([t.cpu() for t in got], want)
+        _equal(got, decode.decode_batch(comp, n, out_cap=8192,
+                                        multi_stream=multi))
+
+
 @pytest.mark.parametrize("end_marker", [None, END])
 @pytest.mark.parametrize("b,m", [(1, 1), (3, 1000), (2, 32768), (256, 32768),
                                  (1, 65536)])
@@ -814,21 +928,41 @@ def test_sync_kernel_edge_rows(cuda, npos, span):
     assert (want[0][:, 1:] > 0).any() or npos == 1
 
 
-def test_sync_launches_no_conversion(cuda):
-    """The encoder's bool starts go to the kernel as they are: the call
-    launches one kernel, the sync kernel, and nothing else."""
-    arrays = [torch.from_numpy(a).to(cuda)
-              for a in sync_batch(7, 33, 32768, 2048)]
-    kw = sync_kwargs(32768, 2048)
+#: test_sync_launches_no_conversion's profile, run in a fresh process
+_SYNC_PROFILE = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from test_torch_cases import sync_batch, sync_kwargs
+from lzs_tpu_torch.ops import psync
+cuda = torch.device("cuda", 0)
+arrays = [torch.from_numpy(a).to(cuda) for a in sync_batch(7, 33, 32768, 2048)]
+kw = sync_kwargs(32768, 2048)
+psync.sync_records(*arrays, **kw)
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
     psync.sync_records(*arrays, **kw)
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        psync.sync_records(*arrays, **kw)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def test_sync_launches_no_conversion(cuda):
+    """The encoder's bool starts go to the kernel as they are: the call
+    launches one kernel, the sync kernel, and nothing else. The profile
+    runs in a fresh process: in one that has profiled before, a later
+    torch.profiler session can see no device events at all (on the H100,
+    with no port code: one session, ten seconds of small launches, then
+    every session empty), which the tests before this one can cause."""
+    tests = pathlib.Path(__file__).resolve().parent
+    run = subprocess.run([sys.executable, "-c", _SYNC_PROFILE, str(tests)],
+                         cwd=tests.parent, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    kernels = json.loads(run.stdout.strip().splitlines()[-1])
     assert len(kernels) == 1 and "sync_kernel" in kernels[0], kernels
 
 
@@ -964,6 +1098,16 @@ def test_wrappers_reject_bad_operands(cuda):
         decode2._parse_full(comp[:3], v, v, 160)
     with pytest.raises(ValueError):
         decode2._parse_full(comp, v, v.cpu(), 160)
+    with pytest.raises(TypeError):
+        decode._parse_scan(comp.to(torch.int32), n, out_cap=64,
+                           max_units=8)
+    with pytest.raises(ValueError):
+        decode._parse_scan(comp, n[:3].contiguous(), out_cap=64,
+                           max_units=8)
+    with pytest.raises(ValueError):
+        decode._parse_scan(comp[:, ::2], n, out_cap=64, max_units=8)
+    with pytest.raises(ValueError):
+        decode._parse_scan(comp, n.cpu(), out_cap=64, max_units=8)
     with pytest.raises(TypeError):
         decode2._parse_flat(comp.to(torch.int32), v, v, 160)
     with pytest.raises(ValueError):

@@ -3,7 +3,9 @@
 Raw LZS streams go through ``lzs_tpu.ops.decode.decode_batch`` (engine
 "bits": its Pallas walk, cumsum, cummax and expansion kernels in
 interpret mode; and engine "scan", the bit-serial oracle) and through the
-port's ``decode_batch`` on CPU tensors (every kernel's plain version).
+port's ``decode_batch`` on CPU tensors (every kernel's plain version),
+each port engine against each JAX engine on the fuzz set
+(tests/test_torch_scandecode.py has the rest of engine "scan").
 Bytes, output lengths and end-marker counts must be equal (tolerance 0)
 at batch >= 32 with both ``multi_stream`` values, on the fuzz set of
 tests/test_ops.py (concatenated and truncated rows included), the edge
@@ -97,6 +99,18 @@ def test_fuzz_matches_jax_engines(fuzz, multi, engine):
         assert got[0][i, :got[1][i]].tobytes() == d
     joined = datas[0] + datas[1] if multi else datas[0]
     assert got[0][30, :got[1][30]].tobytes() == joined
+    assert got[2][30] == (2 if multi else 1)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("engine", ["bits", "scan"])
+def test_fuzz_port_scan_matches_jax_engines(fuzz, multi, engine):
+    buf, lens, datas = fuzz
+    got = _port(buf, lens, out_cap=2048, multi_stream=multi, engine="scan")
+    _assert_equal(got, _jax(buf, lens, out_cap=2048, multi_stream=multi,
+                            engine=engine))
+    for i, d in enumerate(datas):
+        assert got[0][i, :got[1][i]].tobytes() == d
     assert got[2][30] == (2 if multi else 1)
 
 
@@ -234,21 +248,54 @@ def test_decode_block_at_max_out_cap_matches_reference():
                                device="cpu") == want
 
 
-def test_out_cap_over_max_or_scan_engine_is_not_ported():
+@pytest.mark.parametrize("engine", ["bits", "scan"])
+def test_out_cap_over_max_raises(engine):
+    """Past 2^18 output bytes a record's opos << 13 leaves int32 (F9):
+    both engines refuse such an out_cap, through every entry point."""
     buf = torch.zeros((1, 8), dtype=torch.uint8)
     n = torch.zeros(1, dtype=torch.int32)
+    over = bitpar.MAX_OUT_CAP + 1
     for max_units in (None, decode.default_max_units(64), 32):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            decode.decode_batch(buf, n, out_cap=bitpar.MAX_OUT_CAP + 1,
-                                max_units=max_units)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            decode.decode_batch(buf, n, out_cap=64, engine="scan",
-                                max_units=max_units)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            decode.decode_block(buf[0], n[0], out_cap=64, engine="scan",
-                                max_units=max_units)
+        with pytest.raises(ValueError, match="opos << 13"):
+            decode.decode_batch(buf, n, out_cap=over, max_units=max_units,
+                                engine=engine)
+        with pytest.raises(ValueError, match="opos << 13"):
+            decode.decode_block(buf[0], n[0], out_cap=over,
+                                max_units=max_units, engine=engine)
+        with pytest.raises(ValueError, match="opos << 13"):
+            decode.make_decoder(8, over, max_units=max_units,
+                                engine=engine)(buf, n)
+    with pytest.raises(ValueError, match="opos << 13"):
+        decode.decode_bytes(b"", over, engine=engine, device="cpu")
     with pytest.raises(ValueError):
         bitpar.decode_batch_bits(buf, n, out_cap=0)
+
+
+@pytest.mark.parametrize("out_cap", [64, bitpar.MAX_OUT_CAP])
+def test_scan_engine_decodes_up_to_max_out_cap(out_cap):
+    """Engine "scan" runs at any out_cap up to 2^18, as engine "bits"."""
+    stream = ref.lzs_compress(b"scan " * 20)
+    buf, lens = _batch([stream, b""])
+    want = _port(buf, lens, out_cap=out_cap)
+    for max_units in (None, 32):
+        got = _port(buf, lens, out_cap=out_cap, max_units=max_units,
+                    engine="scan")
+        if max_units is None:
+            _assert_equal(got, want)
+        assert got[0].shape == (2, out_cap) and got[1][1] == 0
+    assert decode.decode_bytes(stream, out_cap, engine="scan",
+                               device="cpu") == (b"scan " * 20)[:out_cap]
+
+
+def test_unknown_engine_raises():
+    buf = torch.zeros((1, 8), dtype=torch.uint8)
+    n = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown engine"):
+        decode.decode_batch(buf, n, out_cap=64, engine="serial")
+    with pytest.raises(ValueError, match="unknown engine"):
+        decode.decode_block(buf[0], n[0], out_cap=64, engine="Scan")
+    with pytest.raises(ValueError, match="unknown engine"):
+        decode.make_decoder(8, 64, engine="lanes")(buf, n)
 
 
 def test_block_codec_decode_batch_raw_matches_jax():

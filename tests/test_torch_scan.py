@@ -187,11 +187,13 @@ def test_ext_breaks_capped_head_at_row_end(b):
                                   jnp.asarray(score), 12)))
 
 
-@pytest.mark.parametrize("b,w", [(8, 1024), (32, 128), (3, 777)])
+@pytest.mark.parametrize("b,w", [(8, 1024), (32, 128), (3, 777), (32, 1),
+                                 (33, 3), (33, 4095), (33, 8193)])
 def test_rank_mask_matches_jax_pext(b, w):
     rng = np.random.default_rng(b + w)
     mask = rng.random((b, w)) < rng.random((b, 1))
     mask[0] = True
+    mask[-1] = False
     got = pext.rank_mask(torch.from_numpy(mask))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(

@@ -17,7 +17,7 @@ import torch
 
 from lzs_tpu_torch import BlockCodec, trace
 from lzs_tpu_torch.blocks import pad_blocks
-from lzs_tpu_torch.ops import ppack
+from lzs_tpu_torch.ops import decode, ppack
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -54,6 +54,24 @@ def test_raw_stage_times_cover_the_raw_decoder():
         out, out_len, _ = codec.decode_batch_raw(comp, clen)
     assert set(times) == set(trace.RAW_STAGES)
     assert not set(trace.RAW_STAGES) & set(trace.STAGES)
+    assert out_len.tolist() == lens.tolist()
+    assert b"".join(out[i, :m].numpy().tobytes()
+                    for i, m in enumerate(lens)) == data
+
+
+def test_scan_stage_times_cover_the_scan_decoder():
+    data = np.random.default_rng(4).integers(97, 101, 3000).astype(
+        np.uint8).tobytes()
+    codec = BlockCodec(block=1024, device="cpu")
+    x, lens = pad_blocks(data, 1024)
+    comp, clen, _, _, _ = codec.encode_batch(torch.from_numpy(x),
+                                             torch.from_numpy(lens))
+    with trace.stage_times() as times:
+        out, out_len, _ = decode.decode_batch(comp, clen, out_cap=1024,
+                                              engine="scan")
+    assert set(times) == set(trace.SCAN_STAGES)
+    assert not set(trace.SCAN_STAGES) & (set(trace.STAGES)
+                                         | set(trace.RAW_STAGES))
     assert out_len.tolist() == lens.tolist()
     assert b"".join(out[i, :m].numpy().tobytes()
                     for i, m in enumerate(lens)) == data
