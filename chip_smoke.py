@@ -60,12 +60,31 @@ non-zero):
               multi_stream (both pieces, 2 markers), and the payload with a
               max_units that cuts every stream (each block a prefix of its
               input; phase 3 holds its parse to the plain version);
-  7. counts   every kernel of each path launched at least once in that
-              path's phase (4, 5 and 6);
-  8. corrupt  a flipped payload byte raises ValueError.
+  7. stream   the streaming codec (lzs_tpu_torch.stream) on the first
+              1 MiB of the corpus (the depth cut; the search's width is
+              the stream's full pool of 32768): StreamCompressor(
+              device="cuda") in 64 KiB feeds, once per backend ("sort",
+              "exhaustive"), with the counters reset just before; each
+              output must equal the C encoder's one-shot bytes, and
+              StreamDecompressor and decompress_stream must give the
+              input back; then, with the counters reset again (path
+              stream_block), encode_bytes of the same 1 MiB (equal to
+              the C encoder block by block) and one 32768-byte
+              encode_block_sync / decode_block_sync round trip (exact,
+              status 0); both backends' _best_matches_host on the card
+              against device="cpu" at every pool of POOLS, and, as
+              information, each backend's stream MB/s (wall), one
+              32768-position slice's wall, its match search's device
+              busy ms (torch.profiler, the stream's lzs::stream_match
+              span) and the host share of the slice;
+              phase 3 records the stream's kernel calls (the first of
+              each shape) and holds them to the plain versions;
+  8. counts   every kernel of each path launched at least once in that
+              path's phase (4, 5, 6 and 7);
+  9. corrupt  a flipped payload byte raises ValueError.
 
 Then one JSON line with every kernel's name, route, source, the TPU
-kernel it replaces, its launches in phases 4, 5 and 6, its error, its
+kernel it replaces, its launches in phases 4, 5, 6 and 7, its error, its
 times (kernel, plain, library call or null), its bound and what bounds
 it at its widest input on a counted path ("shape"), the same at every
 shape (``at``), and last the line {"ok": true, "device": {...}}.
@@ -76,7 +95,6 @@ Imports torch, numpy and the port; nothing of jax or of the JAX package.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 import hashlib
 import json
@@ -94,9 +112,10 @@ sys.path.insert(0, str(ROOT))
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks  # noqa: E402
 from lzs_tpu_torch.ops import (  # noqa: E402
-    _kernels, bitpar, decode, decode2, pcand, pexpand, pext, pgather, ppack,
-    psync, pwalk)
-from lzs_tpu_torch import spec, trace  # noqa: E402
+    _kernels, bitpar, decode, decode2, encode, pcand, pexpand, pext, pgather,
+    ppack, psync, pwalk)
+from lzs_tpu_torch import stream, trace  # noqa: E402
+from lzs_tpu_torch.utils import native  # noqa: E402
 
 BLOCK = 1 << 15
 SIZE = 1 << 23
@@ -111,9 +130,21 @@ PATH_KERNELS = {
     "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
     "scan": ("scan_parse", "rowscan_cummax", "expand"),
+    "stream": ("perk_level", "ext_breaks", "ext_fold", "rank_mask",
+               "gather_big", "rowscan_rcummin"),
 }
+#: the stream phase's one-block entry points (encode_bytes and one
+#: encode_block_sync / decode_block_sync round trip) run the main path's
+#: encode and decode at batch 1
+PATH_KERNELS["stream_block"] = PATH_KERNELS["main"]
 #: a scan-engine step budget that cuts every stream of the raw payload
 CUT_UNITS = 1000
+#: the stream phase's depth cut (1 MiB of the corpus) and feed size
+STREAM_SIZE = 1 << 20
+STREAM_FEED = 1 << 16
+#: the stream's match-search pools (batch 1), each run with n at the pool
+#: and below it
+POOLS = tuple(256 << k for k in range(8))
 
 
 def log(phase: str, msg: str) -> None:
@@ -141,37 +172,16 @@ def timed_call(fn, reps: int = 1):
 
 
 def native_codec():
-    """The repo's native C++ codec (the C encoder's bytes), built with
-    make into the ignored build directory and bound with ctypes."""
-    out = ROOT / "build" / "native"
-    subprocess.run(["make", "-s", "-C", str(ROOT / "native"),
-                    f"BUILD={out}"], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out / "liblzs_native.so"))
-    lib.lzs_nat_compress.restype = ctypes.c_size_t
-    lib.lzs_nat_compress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                     ctypes.c_void_p, ctypes.c_size_t]
-    lib.lzs_nat_decompress.restype = ctypes.c_size_t
-    lib.lzs_nat_decompress.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_size_t)]
-
-    def compress(data: bytes) -> bytes:
-        cap = spec.compressed_max(len(data)) + 16
-        buf = ctypes.create_string_buffer(cap)
-        m = lib.lzs_nat_compress(data, len(data), buf, cap)
-        if m == ctypes.c_size_t(-1).value:
-            raise RuntimeError("native compress overflow")
-        return buf.raw[:m]
+    """The C encoder's bytes (one-shot) and a decoder of a chain of
+    streams, from the port's native runtime (``utils.native``: built with
+    make into the ignored build directory, bound with ctypes)."""
+    native.load()
 
     def decompress(chain: bytes, out_cap: int) -> bytes:
         """Decode a chain of streams, reading on past each end marker."""
-        buf = ctypes.create_string_buffer(out_cap)
-        used = ctypes.c_size_t(0)
-        m = lib.lzs_nat_decompress(chain, len(chain), buf, out_cap, 1,
-                                   ctypes.byref(used))
-        return buf.raw[:m]
+        return native.decompress(chain, out_cap=out_cap, multi_stream=True)
 
-    return compress, decompress
+    return native.compress, decompress
 
 
 def phase_device() -> str:
@@ -295,16 +305,22 @@ OPS_PER_ELEMENT = {
 
 
 @contextlib.contextmanager
-def recorded_calls():
+def recorded_calls(first_of_shape: bool = False):
     """Record the arguments of every kernel wrapper call made inside,
-    by kernel name (the wrappers run as usual)."""
+    by kernel name (the wrappers run as usual); with ``first_of_shape``
+    only each kernel's first call of each set of shapes (the stream's
+    slices repeat their shapes many times)."""
     calls = {name: [] for name in WRAPPERS}
+    seen = set()
     saved = []
     for name, (module, attr, _) in WRAPPERS.items():
         wrapper = getattr(module, attr)
 
         def record(*args, _name=name, _wrapper=wrapper, **kw):
-            calls[_name].append((args, kw))
+            key = (_name, _shape_key(args, kw))
+            if not (first_of_shape and key in seen):
+                seen.add(key)
+                calls[_name].append((args, kw))
             return _wrapper(*args, **kw)
 
         saved.append((module, attr, wrapper))
@@ -469,6 +485,18 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
         decode.decode_bytes(b"".join(map(native_compress, short_pair(data))),
                             BLOCK, multi_stream=True, engine="scan",
                             device=device)
+    piece = data[:STREAM_SIZE]
+    with recorded_calls(first_of_shape=True) as calls["stream"]:
+        for backend in encode.BACKENDS:
+            stream_encode(piece, backend, device)
+    with recorded_calls(first_of_shape=True) as calls["stream pools"]:
+        for backend in encode.BACKENDS:
+            for arr, n in pool_inputs(data):
+                stream._best_matches_host(arr, n, backend=backend,
+                                          device=device)
+    with recorded_calls(first_of_shape=True) as calls["stream_block"]:
+        encode.encode_bytes(piece, BLOCK, device=device)
+        block_round_trip(data, device)
     torch.cuda.synchronize()
     for path, names in PATH_KERNELS.items():
         called = sorted(k for k, c in calls[path].items() if c)
@@ -806,6 +834,159 @@ def phase_scan(data: bytes, device: torch.device, native,
     return counts
 
 
+def stream_encode(piece: bytes, backend: str, device: torch.device) -> bytes:
+    """``piece`` through a StreamCompressor on ``device`` in STREAM_FEED
+    feeds."""
+    c = stream.StreamCompressor(backend=backend, device=str(device))
+    out = bytearray()
+    for ofs in range(0, len(piece), STREAM_FEED):
+        out += c.feed(piece[ofs:ofs + STREAM_FEED])
+    out += c.finish()
+    return bytes(out)
+
+
+def pool_inputs(data: bytes):
+    """(int32 bytes, n) of the corpus at each pool of POOLS: n at the pool
+    and n = 3/4 of it plus 1 (the same pool, positions past n padded)."""
+    for pool in POOLS:
+        for n in (pool, pool * 3 // 4 + 1):
+            piece = data[pool:pool + n]
+            yield np.frombuffer(piece, np.uint8).astype(np.int32), n
+
+
+def block_round_trip(data: bytes, device: torch.device) -> int:
+    """One BLOCK-byte encode_block_sync / decode_block_sync round trip of
+    the corpus's second block: exact, status 0 (decode_batch_sync's
+    status word of the same records). Returns the compressed bytes."""
+    piece = data[BLOCK:2 * BLOCK]
+    x = torch.from_numpy(np.frombuffer(piece, np.uint8).copy()).to(device)
+    n = torch.tensor(len(piece), dtype=torch.int32, device=device)
+    comp, nbytes, sbit, sout, _ = encode.encode_block_sync(x, n)
+    out = decode2.decode_block_sync(comp, sbit, sout, n, out_cap=BLOCK)
+    _, status = decode2.decode_batch_sync(comp[None], sbit[None], sout[None],
+                                          n.reshape(1), out_cap=BLOCK)
+    if out.cpu().numpy().tobytes() != piece or int(status[0]) != 0:
+        raise AssertionError(f"encode_block_sync / decode_block_sync round "
+                             f"trip differs (status {int(status[0])})")
+    return int(nbytes)
+
+
+def _stream_mbps(piece: bytes, backend: str, device: torch.device) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream_encode(piece, backend, device)
+    return len(piece) / (time.perf_counter() - t0) / 1e6
+
+
+def _slice_feed(piece: bytes, backend: str, device: torch.device) -> None:
+    """One fresh compressor fed exactly one slice of the stream's pool:
+    one match search of 32768 positions and its host walk."""
+    stream.StreamCompressor(backend=backend, device=str(device)).feed(piece)
+    torch.cuda.synchronize()
+
+
+def _slice_busy_ms(piece: bytes, backend: str, device: torch.device):
+    """Device busy ms of one slice's match search, from a torch.profiler
+    session around one slice (the activities launched inside the
+    stream's ``lzs::stream_match`` span; overlapping intervals merged);
+    None when the profiler saw no device activity there."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from profile_port import device_summary
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _slice_feed(piece, backend, device)
+    out = ROOT / "build" / "stream_slice_trace.json"
+    out.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    events = json.loads(out.read_text())["traceEvents"]
+    out.unlink()
+    return device_summary(events)["stages"].get(trace.STREAM_STAGES[0])
+
+
+def phase_stream(data: bytes, device: torch.device, native):
+    """The streaming codec on the card: both backends over the first
+    STREAM_SIZE bytes, the decoders, the one-block entry points (counters
+    reset just before each of the two runs), the pools against the CPU;
+    then the slice's numbers (information). Returns the launch counts of
+    the streams and of the one-block entry points."""
+    native_compress, _ = native
+    piece = data[:STREAM_SIZE]
+    expect = native_compress(piece)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    got = {b: stream_encode(piece, b, device) for b in encode.BACKENDS}
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    for backend, comp in got.items():
+        if comp != expect:
+            raise AssertionError(f"stream ({backend}) differs from the C "
+                                 f"encoder's one-shot bytes")
+    log("stream", f"StreamCompressor(device=\"cuda\") of the corpus's "
+        f"first {len(piece)} bytes (depth cut: {len(piece)} of "
+        f"{len(data)}; pool {stream._POOL}) in {STREAM_FEED}-byte feeds: "
+        f"backends {list(got)} each equal the C encoder's one-shot "
+        f"{len(expect)} bytes")
+    dec = stream.StreamDecompressor()
+    if (dec.feed(expect) != piece
+            or stream.decompress_stream(expect, STREAM_FEED) != piece):
+        raise AssertionError("stream decode differs from the input")
+    log("stream", "StreamDecompressor and decompress_stream (native) give "
+        "the input back")
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    blocks = encode.encode_bytes(piece, BLOCK, device=device)
+    nbytes = block_round_trip(data, device)
+    torch.cuda.synchronize()
+    block_counts = _kernels.launch_counts()
+    want = b"".join(native_compress(piece[s:s + BLOCK])
+                    for s in range(0, len(piece), BLOCK))
+    if blocks != want:
+        raise AssertionError("encode_bytes differs from the C encoder")
+    log("stream", f"encode_bytes of the {len(piece)} bytes == the C encoder "
+        f"block by block ({len(blocks)} bytes); encode_block_sync / "
+        f"decode_block_sync of one {BLOCK}-byte block ({nbytes} bytes): "
+        f"exact, status 0")
+
+    for backend in encode.BACKENDS:
+        for arr, n in pool_inputs(data):
+            on_card = stream._best_matches_host(arr, n, backend=backend,
+                                                device=device)
+            on_cpu = stream._best_matches_host(arr, n, backend=backend,
+                                               device="cpu")
+            if not all(np.array_equal(g, w) for g, w in zip(
+                    on_card, on_cpu, strict=True)):
+                raise AssertionError(f"_best_matches_host ({backend}, n={n})"
+                                     f": the card differs from the CPU")
+    log("stream", f"_best_matches_host on the card == device=\"cpu\" for "
+        f"both backends at pools {list(POOLS)}, n at the pool and 3/4 of it")
+
+    mbps = {b: _stream_mbps(piece, b, device) for b in encode.BACKENDS}
+    one = data[:stream._POOL]
+    walls = {}
+    for backend in encode.BACKENDS:
+        _slice_feed(one, backend, device)
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _slice_feed(one, backend, device)
+            runs.append(1e3 * (time.perf_counter() - t0))
+        walls[backend] = sorted(runs)[1]
+    for backend in encode.BACKENDS:
+        b = _slice_busy_ms(one, backend, device)
+        share = ("not measured (the profiler saw no device activity)"
+                 if b is None else f"{1 - b / walls[backend]:.4f}")
+        log("stream", f"{backend}: stream {mbps[backend]:.4f} MB/s (wall, "
+            f"{len(piece)} bytes); one {stream._POOL}-position slice "
+            f"{walls[backend]:.2f} ms wall (median of 3), its match "
+            f"search's device busy "
+            f"{'not measured' if b is None else f'{b:.4f} ms'}, host share "
+            f"of the slice {share}")
+    return counts, block_counts
+
+
 def phase_counts(counts: dict[str, dict[str, int]]) -> None:
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if counts[path][k] <= 0]
@@ -849,6 +1030,8 @@ def main() -> None:
     counts["main"], blob, codec = phase_main(data, device, native)
     counts["raw"], raw_ms = phase_raw(data, device, native)
     counts["scan"] = phase_scan(data, device, native, raw_ms)
+    counts["stream"], counts["stream_block"] = phase_stream(data, device,
+                                                            native)
     phase_counts(counts)
     phase_corrupt(blob, codec)
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,

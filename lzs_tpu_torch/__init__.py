@@ -6,8 +6,12 @@ its reference: every stage here matches its counterpart exactly.
 
 Layout (mirrors ``lzs_tpu``):
   spec.py        wire-format constants
+  reference.py   the NumPy model of the codec (host oracle)
+  stream.py      streaming codec with carried window state: match search
+                 on the card, walk and emission on the host
   ops/           the container codec path and the raw-stream decoder:
                    sortmatch.py  sort-based match search + run extension
+                   match.py      exhaustive windowed-compare search
                    pcand.py      per-k match-search glue (kernels + plain)
                    tokenize.py   greedy token walk + emission units
                    pwalk.py      token walk (kernels + plain form)
@@ -26,16 +30,31 @@ Layout (mirrors ``lzs_tpu``):
   blocks.py      BlockCodec and the container framing
   convert.py     codec settings and batch arrays across the two packages
   trace.py       named stage spans (profiler annotations, stage times)
+  utils/         the native C++ runtime's binding (native.py), token
+                 dumps, stream stats and profiling hooks (debug.py)
 
 A kernel runs for a tensor on a CUDA device; a tensor on the CPU runs
 the kernel's plain torch version. Nothing falls back. The entry points
-(``BlockCodec``, ``ops.decode.decode_bytes``, ``convert.codec_from_jax``)
-run on the card unless the caller asks for ``device="cpu"``.
+(``BlockCodec``, ``ops.decode.decode_bytes``, ``ops.encode.encode_bytes``,
+``StreamCompressor``, ``stream.compress_stream``,
+``convert.codec_from_jax``, ``convert.stream_state_from_jax``) run on the
+card unless the caller asks for ``device="cpu"``.
 """
 
 from .spec import DEFAULT_CONFIG, LzsConfig, compressed_max
+from .reference import lzs_compress, lzs_decompress
 from .blocks import BlockCodec
 
 __version__ = "0.1.0"
 
-__all__ = ["BlockCodec", "DEFAULT_CONFIG", "LzsConfig", "compressed_max"]
+__all__ = ["BlockCodec", "DEFAULT_CONFIG", "LzsConfig", "StreamCompressor",
+           "StreamDecompressor", "compressed_max", "lzs_compress",
+           "lzs_decompress"]
+
+
+def __getattr__(name):
+    # the streaming classes load on first use, as in the JAX package
+    if name in ("StreamCompressor", "StreamDecompressor"):
+        from . import stream
+        return getattr(stream, name)
+    raise AttributeError(name)

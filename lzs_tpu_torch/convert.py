@@ -1,16 +1,21 @@
 """Carry codec state between the JAX package and the port.
 
-The codec has no weights: its state is its settings and the batch
-arrays that pass between the encoder and the decoder. These helpers move
-both without importing jax: a JAX ``BlockCodec`` is read through its
-plain attributes, and batch arrays cross as numpy.
+The codec has no weights: its state is its settings, the batch arrays
+that pass between the encoder and the decoder, and a stream's
+checkpoint. These helpers move them without importing jax: a JAX
+``BlockCodec`` is read through its plain attributes, batch arrays cross
+as numpy, and a stream checkpoint (``state_dict()``, plain data) becomes
+the port's stream object.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from . import stream
 from .blocks import BlockCodec
 
 #: batch arrays of the container path and the raw decoder, and their
@@ -62,3 +67,21 @@ def batch_to_numpy(tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
             raise KeyError(f"unknown batch array {key!r}")
         out[key] = t.detach().cpu().numpy().astype(BATCH_DTYPES[key])
     return out
+
+
+def stream_state_from_jax(state: dict, device: torch.device | str = "cuda"):
+    """The port's ``StreamCompressor`` or ``StreamDecompressor`` resumed
+    from a JAX stream object's ``state_dict()``: a stream begun in JAX
+    goes on in the port with the same bytes.
+
+    A compressor's match search runs on ``device`` (the CUDA card unless
+    the caller names another); a decompressor is host code and does not
+    read it. Raises KeyError unless the keys are exactly one class's JAX
+    fields.
+    """
+    for cls, extra in ((stream.StreamCompressor, {"device": str(device)}),
+                       (stream.StreamDecompressor, {})):
+        fields = {f.name for f in dataclasses.fields(cls)} - set(extra)
+        if set(state) == fields:
+            return cls(**state, **extra)
+    raise KeyError(f"not a JAX stream state: keys {sorted(state)}")

@@ -242,12 +242,25 @@ def _filled_records(recs: torch.Tensor) -> torch.Tensor:
     return pext.cummax_rows(_flat_records(recs))
 
 
+def decode_block_sync(comp: torch.Tensor, sync_bit: torch.Tensor,
+                      sync_out: torch.Tensor, n: torch.Tensor, *,
+                      out_cap: int, span: int = enc.SYNC_SPAN):
+    """Decode one container block: comp uint8[C], sync_bit/sync_out
+    int32[I] from ``encode.encode_block_sync``, n an int32 scalar tensor
+    -> uint8[out_cap] (zero past ``n``; see ``decode_batch_sync`` for the
+    status variant)."""
+    out, _ = decode_batch_sync(comp[None], sync_bit[None], sync_out[None],
+                               n.reshape(1), out_cap=out_cap, span=span)
+    return out[0]
+
+
 def decode_batch_sync(comp: torch.Tensor, sync_bit: torch.Tensor,
                       sync_out: torch.Tensor, n: torch.Tensor, *,
                       out_cap: int, span: int = enc.SYNC_SPAN):
     """Batched sync-parallel decode with per-block status words.
 
     comp: uint8[B, C]; sync_bit/sync_out: int32[B, I]; n: int32[B].
+    JAX's ``chunk``, which it does not read either, has no counterpart.
     Returns (out uint8[B, out_cap], status int32[B]); status bits:
       bit 0  a byte inside [0, n) had no covering token
       bit 1  a copy source fell before the block start (zero-filled)
@@ -265,3 +278,16 @@ def decode_batch_sync(comp: torch.Tensor, sync_bit: torch.Tensor,
     nxt = torch.cat([sync_out[:, 1:] & 0x1FFFF, n[:, None]], dim=1)
     bad = (out_final != nxt).any(dim=1)
     return out, status | (bad.to(torch.int32) << 2)
+
+
+def make_decoder_sync(out_cap: int, *, span: int = enc.SYNC_SPAN):
+    """Batch decoder over container blocks with sync records: (comp,
+    sync_bit, sync_out, n) -> uint8[B, out_cap], bytes only (see
+    ``decode_batch_sync`` for the status variant). JAX's ``in_cap`` has no
+    counterpart: the input's width is comp's."""
+
+    def fn(comp, sync_bit, sync_out, n):
+        return decode_batch_sync(comp, sync_bit, sync_out, n,
+                                 out_cap=out_cap, span=span)[0]
+
+    return fn

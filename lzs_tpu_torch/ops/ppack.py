@@ -72,10 +72,15 @@ def pack_rows_plain(value: torch.Tensor, width: torch.Tensor, cap_bytes: int,
     wi = torch.arange(cap_words + 1, device=dev)
     nwords = (total + 31) >> 5
     words = torch.where(wi < nwords[:, None], words, 0)[:, :cap_words]
-    shifts = torch.tensor([24, 16, 8, 0], device=dev)
-    comp = ((words[:, :, None] >> shifts) & 0xFF).to(torch.uint8)
-    return (comp.reshape(b, cap_bytes), total.to(torch.int32),
-            offs.to(torch.int32))
+    return words_to_bytes(words), total.to(torch.int32), offs.to(torch.int32)
+
+
+def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
+    """Big-endian 32-bit words (int32 bit patterns, or uint32 values in
+    int64) [..., W] -> uint8[..., 4 W] (elementwise)."""
+    shifts = torch.tensor([24, 16, 8, 0], device=words.device)
+    b = ((words[..., None] >> shifts.to(words.dtype)) & 0xFF).to(torch.uint8)
+    return b.reshape(*words.shape[:-1], words.shape[-1] * 4)
 
 
 def pack_rows(value: torch.Tensor, width: torch.Tensor, cap_bytes: int,

@@ -226,3 +226,23 @@ def best_matches_batch(x: torch.Tensor, n: torch.Tensor, *,
     with trace.stage("extend"):
         full = _extend_batch(x, n, score, off, cap)
     return score, off, full
+
+
+def candidates(x: torch.Tensor, n: torch.Tensor, *,
+               window: int = spec.WINDOW_SIZE,
+               cap: int = spec.SEARCH_MATCH_MAX):
+    """One block of ``candidates_batch``: x int32[N] (zeros past ``n``),
+    n an int32 scalar tensor -> (score, off) int32[N] each."""
+    score, off = candidates_batch(x[None], n.reshape(1), window=window,
+                                  cap=cap)
+    return score[0], off[0]
+
+
+def best_matches(x: torch.Tensor, n: torch.Tensor, *,
+                 window: int = spec.WINDOW_SIZE,
+                 cap: int = spec.SEARCH_MATCH_MAX):
+    """One block of ``best_matches_batch``: x int32[N], n an int32 scalar
+    tensor -> (score, off, full) int32[N] each. JAX's ``chunk`` sizes only
+    the exhaustive backend's fold and has no counterpart here."""
+    out = best_matches_batch(x[None], n.reshape(1), window=window, cap=cap)
+    return tuple(o[0] for o in out)

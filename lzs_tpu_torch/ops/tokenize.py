@@ -90,3 +90,12 @@ def emission_units_batch(x: torch.Tensor, n: torch.Tensor,
     width = torch.where(starts, head_w, torch.where(is_nib, 4, 0))
     return (value.to(torch.int32), width.to(torch.int32), starts,
             length.to(torch.int32))
+
+
+def emission_units(x: torch.Tensor, n: torch.Tensor, score: torch.Tensor,
+                   off: torch.Tensor, full: torch.Tensor):
+    """One block of ``emission_units_batch``: [N] arrays and an int32
+    scalar tensor n -> (value, width, starts, length), [N] each."""
+    out = emission_units_batch(x[None], n.reshape(1), score[None],
+                               off[None], full[None])
+    return tuple(o[0] for o in out)

@@ -1,7 +1,8 @@
 """Named stage spans of the codec's main path and of the raw decoder.
 
-Every stage of compress, decompress and the raw-stream decode (both
-engines of ``ops.decode``) runs inside ``stage(name)``: a
+Every stage of compress, decompress, the raw-stream decode (both
+engines of ``ops.decode``) and the streaming compressor's match search
+runs inside ``stage(name)``: a
 ``torch.profiler.record_function`` span named ``lzs::<name>``, which a
 profiler trace shows on the host and, as a user annotation, over the
 device work the stage launched. With no profiler running a span costs a
@@ -34,6 +35,10 @@ RAW_STAGES = ("heads", "walk", "records", "raw_fill", "raw_expand")
 #: stage names of the raw decoder's engine "scan": the bit-serial parse,
 #: record fill, expansion
 SCAN_STAGES = ("scan_parse", "scan_fill", "scan_expand")
+
+#: stage of the streaming compressor: one slice's match search on its
+#: device, from the host copy in to the three tables back on the host
+STREAM_STAGES = ("stream_match",)
 
 
 def _sync() -> None:

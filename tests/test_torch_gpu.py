@@ -31,7 +31,12 @@ skips past a ring slot and a ring, chains past the row; the mask rank
 the raw decoder's scan parse at batch 33 on encoded, truncated,
 concatenated and noise streams, with a budget that cuts); the codec's
 bytes (also a 256-block container), the probe's run lengths and the raw
-decoder's output on the card are compared with the CPU's.
+decoder's output on the card are compared with the CPU's. The streaming
+codec's match search runs at batch 1: both backends at every pool of
+the stream (256 to 32768, n at the pool and below it) with every kernel
+call held to its plain version, the exhaustive plane's K7 rows at batch
+33, and 256 KiB of the bench corpus streamed on the card against the
+CPU and the C encoder.
 """
 
 import json
@@ -1112,3 +1117,116 @@ def test_wrappers_reject_bad_operands(cuda):
         decode2._parse_flat(comp.to(torch.int32), v, v, 160)
     with pytest.raises(ValueError):
         decode2._parse_flat(comp, v, v[:, ::2], 160)
+
+
+# --- the streaming codec's kernels at batch 1 ---------------------------
+
+#: the match search's kernel wrappers and their plain versions
+_SEARCH_KERNELS = {
+    "perk_level": (pcand, "perk_level", pcand.perk_level_plain),
+    "ext_breaks": (pext, "ext_breaks", pext.ext_breaks_plain),
+    "ext_fold": (pext, "ext_fold", pext.ext_fold_plain),
+    "rank_mask": (pext, "rank_mask", pext.rank_mask_plain),
+    "gather_big": (pgather, "gather_big", pgather.gather_big_plain),
+    "rcummin_rows": (pext, "rcummin_rows", pext.rcummin_rows_plain),
+}
+
+
+def _record_search(monkeypatch):
+    """Record every call of the match search's kernel wrappers."""
+    calls = []
+    for name, (module, attr, _) in _SEARCH_KERNELS.items():
+        wrapper = getattr(module, attr)
+
+        def record(*args, _name=name, _wrapper=wrapper, **kw):
+            calls.append((_name, args, kw))
+            return _wrapper(*args, **kw)
+
+        monkeypatch.setattr(module, attr, record)
+    return calls
+
+
+def _check_recorded(calls):
+    """Each recorded kernel call equals its plain version, bitwise."""
+    for name, args, kw in calls:
+        module, attr, plain = _SEARCH_KERNELS[name]
+        got = getattr(module, attr)(*args, **kw)
+        want = plain(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        _equal(got, want)
+
+
+@pytest.mark.parametrize("backend", ["sort", "exhaustive"])
+@pytest.mark.parametrize("pool", [256 << k for k in range(8)])
+def test_stream_search_kernels_at_batch_1(cuda, monkeypatch, pool, backend):
+    """Both backends' match search at batch 1 and each pool of the stream,
+    n at the pool and below it: every kernel call equals its plain
+    version, and the tables equal the CPU's."""
+    from lzs_tpu_torch import stream
+
+    rng = np.random.default_rng(pool)
+    arr = np.tile(rng.integers(0, 256, 300), pool // 300 + 1)[:pool]
+    arr[rng.random(pool) < 0.05] = 7
+    arr = arr.astype(np.int32)
+    for n in (pool, pool * 3 // 4 + 1):
+        calls = _record_search(monkeypatch)
+        got = stream._best_matches_host(arr, n, backend=backend, device=cuda)
+        monkeypatch.undo()
+        names = {c[0] for c in calls}
+        if backend == "sort":
+            assert {"perk_level", "ext_breaks", "ext_fold"} <= names
+        else:
+            assert names == {"rcummin_rows"}
+        _check_recorded(calls)
+        want = stream._best_matches_host(arr, n, backend=backend,
+                                         device="cpu")
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_exhaustive_plane_k7_rows(cuda, monkeypatch):
+    """The exhaustive plane's reverse cummin runs on K7 over (B * dc, N)
+    rows (at batch 33, 256 offsets a chunk): each launch equals the plain
+    scan, and the tables equal the CPU's."""
+    from lzs_tpu_torch.ops import match
+
+    rng = np.random.default_rng(3)
+    x = np.repeat(rng.integers(0, 4, (33, 700)), 3, axis=1)[:, :2048]
+    x = torch.from_numpy(x.astype(np.int32))
+    n = torch.from_numpy(rng.integers(1, 2049, 33).astype(np.int32))
+    calls = _record_search(monkeypatch)
+    got = match.best_matches_batch(x.to(cuda), n.to(cuda))
+    monkeypatch.undo()
+    assert len(calls) == 8
+    assert {tuple(c[1][0].shape) for c in calls} == {(33 * 256, 2048)}
+    _check_recorded(calls)
+    _equal([g.cpu() for g in got], match.best_matches_batch(x, n))
+
+
+@pytest.mark.parametrize("backend", ["sort", "exhaustive"])
+def test_stream_on_card_equals_cpu(cuda, backend):
+    """The first 256 KiB of the bench corpus streamed on the card equal
+    the same stream on the CPU and the C encoder's one-shot bytes."""
+    from bench import make_corpus
+    from lzs_tpu_torch import stream
+    from lzs_tpu_torch.utils import native
+
+    data = make_corpus(1 << 18)
+
+    def run(device):
+        c = stream.StreamCompressor(backend=backend, device=str(device))
+        out = bytearray()
+        for ofs in range(0, len(data), 1 << 16):
+            out += c.feed(data[ofs:ofs + (1 << 16)])
+        return bytes(out + c.finish())
+
+    _kernels.reset_launches()
+    got = run(cuda)
+    counts = _kernels.launch_counts()
+    if backend == "sort":
+        assert counts["perk_level"] > 0 and counts["ext_fold"] > 0
+    else:
+        assert counts["rowscan_rcummin"] > 0 and counts["perk_level"] == 0
+    assert got == run("cpu") == native.compress(data)
+    assert stream.decompress_stream(got) == data

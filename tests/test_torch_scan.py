@@ -227,6 +227,10 @@ def test_port_imports_no_jax():
             "import lzs_tpu_torch.ops.decode, lzs_tpu_torch.ops.bitpar, "
             "lzs_tpu_torch.ops.pwalk, lzs_tpu_torch.ops.pcand, "
             "lzs_tpu_torch.ops.pgather\n"
+            "import lzs_tpu_torch.stream, lzs_tpu_torch.reference, "
+            "lzs_tpu_torch.utils.native, lzs_tpu_torch.utils.debug, "
+            "lzs_tpu_torch.ops.match\n"
+            "lzs_tpu_torch.StreamCompressor, lzs_tpu_torch.lzs_compress\n"
             "assert 'jax' not in sys.modules, sorted(sys.modules)\n"
             "assert 'lzs_tpu' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
