@@ -21,7 +21,11 @@ non-zero):
               inputs beside it), of one
               decode_batch_raw of its raw payload and of the 2^18
               decode_block, and of four scan-engine decodes like phase
-              6's, is recorded as it runs; each recorded
+              6's, and the first call of each shape of the stream's runs
+              (phase 7) and of what phases 8-10 add (the coders' repeat
+              inputs, the CLI's two raw decodes on the card, one
+              DistributedCodec compress and decompress), is recorded as
+              it runs; each recorded
               call is then held against the kernel's plain torch version
               on the same inputs, bitwise, and the first and the last call
               of each set of tensor shapes is timed with CUDA events (so
@@ -79,12 +83,34 @@ non-zero):
               span) and the host share of the slice;
               phase 3 records the stream's kernel calls (the first of
               each shape) and holds them to the plain versions;
-  8. counts   every kernel of each path launched at least once in that
-              path's phase (4, 5, 6 and 7);
-  9. corrupt  a flipped payload byte raises ValueError.
+  8. coders   the codec profiles (lzs_tpu_torch.models) on the card, with
+              the counters reset just before: each profile's
+              compress_bytes of the corpus's first 32768 bytes (one
+              compress's whole span) round-trips exactly, "standard"
+              equals the C encoder's one-shot bytes, and a block of random
+              bytes repeated at periods 2100 and 3000 (matches past offset
+              2047) through "reach", "flat" and "bounded" gives the CPU's
+              tokens; then each distinct (window, cap) match table on the
+              card against device="cpu";
+  9. cli      lzs_tpu_torch.cli.main in this process on files under
+              build/, counters reset just before: raw blocks of the corpus
+              (equal to the C encoder block by block, read back by the C
+              decoder), decompress of the first 4 blocks' raw file (out_cap
+              2^18) and of the whole raw file (out_cap 2^24, in windows of
+              2^18), both on the card, container and lazy container
+              round trips, --stream of the first 1 MiB (the C encoder's
+              one-shot bytes); each call's host-clock MB/s and route, and
+              the whole raw file's decode stages;
+ 10. dist     DistributedCodec(block=32768) on an NCCL world of one
+              (a FileStore under build/), counters reset just before: its
+              payload and sync arrays equal BlockCodec's, its decompress
+              exact; the group is destroyed after;
+ 11. counts   every kernel of each path launched at least once in that
+              path's phase (4-10);
+ 12. corrupt  a flipped payload byte raises ValueError.
 
 Then one JSON line with every kernel's name, route, source, the TPU
-kernel it replaces, its launches in phases 4, 5, 6 and 7, its error, its
+kernel it replaces, its launches in phases 4-10, its error, its
 times (kernel, plain, library call or null), its bound and what bounds
 it at its widest input on a counted path ("shape"), the same at every
 shape (``at``), and last the line {"ok": true, "device": {...}}.
@@ -97,10 +123,12 @@ from __future__ import annotations
 import contextlib
 import functools
 import hashlib
+import io
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -114,7 +142,8 @@ from lzs_tpu_torch.blocks import BlockCodec, pad_blocks  # noqa: E402
 from lzs_tpu_torch.ops import (  # noqa: E402
     _kernels, bitpar, decode, decode2, encode, pcand, pexpand, pext, pgather,
     ppack, psync, pwalk)
-from lzs_tpu_torch import stream, trace  # noqa: E402
+from lzs_tpu_torch import cli, parallel, stream, trace  # noqa: E402
+from lzs_tpu_torch.models import PROFILES, get_profile  # noqa: E402
 from lzs_tpu_torch.utils import native  # noqa: E402
 
 BLOCK = 1 << 15
@@ -137,6 +166,29 @@ PATH_KERNELS = {
 #: encode_block_sync / decode_block_sync round trip) run the main path's
 #: encode and decode at batch 1
 PATH_KERNELS["stream_block"] = PATH_KERNELS["main"]
+#: the codec profiles' match search (batch 1, the stream's kernels; the
+#: repeat inputs' runs past the tier-1 span close in a tier-2 round, K7)
+PATH_KERNELS["coders"] = PATH_KERNELS["stream"]
+#: the CLI: the container and raw-block codecs (the main path), the raw
+#: decode (the raw path; past 2^18 output bytes in windows) and --stream
+PATH_KERNELS["cli"] = PATH_KERNELS["main"] + tuple(
+    k for k in PATH_KERNELS["raw"] if k not in PATH_KERNELS["main"])
+#: DistributedCodec on a world of one: the main path's encode and decode
+PATH_KERNELS["dist"] = PATH_KERNELS["main"]
+#: paths whose recording in phase 3 holds only the calls they add to the
+#: other paths' (the coders' repeat inputs, the CLI's raw decodes): their
+#: recorded kernels are a subset of their lists
+PARTLY_RECORDED = ("coders", "cli")
+#: the coders phase's depth: one compress's whole span (the match
+#: search's pool)
+CODER_SPAN = 1 << 15
+#: periods of the coders phase's repeat inputs (a block of random bytes
+#: twice): matches at offsets past 2047, in the windows of FAR_PROFILES
+REPEATS = (2100, 3000)
+FAR_PROFILES = ("reach", "flat", "bounded")
+#: the CLI phase's raw file of the corpus's first blocks: its stream
+#: (some 53 KB) takes the device route at out_cap 2^18
+CLI_BLOCKS = 4
 #: a scan-engine step budget that cuts every stream of the raw payload
 CUT_UNITS = 1000
 #: the stream phase's depth cut (1 MiB of the corpus) and feed size
@@ -229,8 +281,10 @@ WRAPPERS = {
 
 #: kernels whose plain version runs once per comparison, whose own call
 #: is then its timed call: the scan parse's plain loop issues some 45
-#: launches a parse step, seconds at the payload's 17,000-step streams
-ONE_SHOT = {"scan_parse"}
+#: launches a parse step, seconds at the payload's 17,000-step streams;
+#: the walk entries' plain loop some 9 a tile, over 10 s at the CLI's
+#: whole raw file (262,144 tiles)
+ONE_SHOT = {"scan_parse", "walk_entries"}
 
 #: (path, kernel) whose recorded calls are held against engine "bits" and
 #: the input instead of the plain version: the 2^18 stream's scan parse,
@@ -458,7 +512,11 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
     that the paths give it, recorded as they run: one greedy compress +
     decompress of the corpus (path main), one decode_batch_raw of its raw
     per-block payload (path raw) and the 2^18 decode_block (path raw,
-    wide row). The first call of each shape is timed with CUDA events."""
+    wide row), the scan decodes, the stream, and the first call of each
+    shape of what the last three paths add: the profiles' repeat inputs
+    (coders), the CLI's raw decodes on the card (cli) and one
+    DistributedCodec compress and decompress (dist). The first and last
+    call of each shape is timed with CUDA events."""
     native_compress, _ = native
     codec = BlockCodec(block=BLOCK, device=device)
     calls = {}
@@ -497,10 +555,22 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
     with recorded_calls(first_of_shape=True) as calls["stream_block"]:
         encode.encode_bytes(piece, BLOCK, device=device)
         block_round_trip(data, device)
+    with recorded_calls(first_of_shape=True) as calls["coders"]:
+        for name in FAR_PROFILES:
+            for period in REPEATS:
+                get_profile(name, device=str(device)).compress(
+                    repeat_block(period))
+    with recorded_calls(first_of_shape=True) as calls["cli"]:
+        for chain in cli_raw_chains(data, native_compress):
+            cli._decompress_raw_device(chain, device)
+    with (world_of_one(device),
+          recorded_calls(first_of_shape=True) as calls["dist"]):
+        dist_drive(data, device)
     torch.cuda.synchronize()
     for path, names in PATH_KERNELS.items():
         called = sorted(k for k, c in calls[path].items() if c)
-        if called != sorted(names):
+        if not (set(called) <= set(names) if path in PARTLY_RECORDED
+                else called == sorted(names)) or not called:
             raise AssertionError(f"{path}: kernels called {called}, listed "
                                  f"{sorted(names)}")
 
@@ -987,6 +1057,274 @@ def phase_stream(data: bytes, device: torch.device, native):
     return counts, block_counts
 
 
+def repeat_block(period: int) -> bytes:
+    """``period`` random bytes (seed 0), twice: from ``period`` on every
+    position matches at offset ``period``."""
+    rng = np.random.default_rng(0)
+    return rng.integers(0, 256, period, dtype=np.uint8).tobytes() * 2
+
+
+def coders_drive(data: bytes, device) -> tuple[dict, dict]:
+    """Every profile's compress_bytes of the corpus's first CODER_SPAN
+    bytes, and the FAR_PROFILES' tokens of each repeat input, with the
+    match search on ``device``."""
+    piece = data[:CODER_SPAN]
+    blobs = {name: get_profile(name, device=str(device)).compress_bytes(
+        piece) for name in PROFILES}
+    far = {(name, period): get_profile(name, device=str(device)).compress(
+        repeat_block(period)) for name in FAR_PROFILES for period in REPEATS}
+    return blobs, far
+
+
+def phase_coders(data: bytes, device: torch.device, native):
+    """The generalized coders on the card: the profiles of
+    ``lzs_tpu_torch.models`` (counters reset just before), each round
+    trip exact, ``standard`` equal to the C encoder, the repeat inputs'
+    tokens equal to the CPU's; then each distinct (window, cap) match
+    table on the card against the CPU's."""
+    native_compress, _ = native
+    piece = data[:CODER_SPAN]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    blobs, far = coders_drive(data, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernels.launch_counts()
+    for name, blob in blobs.items():
+        if get_profile(name, device=str(device)).decompress_bytes(
+                blob) != piece:
+            raise AssertionError(f"profile {name}: round trip differs")
+    if blobs["standard"] != native_compress(piece):
+        raise AssertionError("profile standard differs from the C encoder")
+    log("coders", f"{len(PROFILES)} profiles' compress_bytes of "
+        f"{len(piece)} bytes on the card: each round trip exact, "
+        f"standard == the C encoder's one-shot bytes; sizes " + ", ".join(
+            f"{k} {len(v)}" for k, v in blobs.items()))
+    for (name, period), toks in far.items():
+        cpu = get_profile(name, device="cpu")
+        block = repeat_block(period)
+        if toks != cpu.compress(block) or cpu.decompress(toks) != block:
+            raise AssertionError(f"profile {name}, period {period}: tokens "
+                                 f"differ from the CPU's")
+    longest = max((t for t in far[("flat", REPEATS[-1])] if t[0] == "match"),
+                  key=lambda t: t[2])
+    log("coders", f"repeat inputs (periods {list(REPEATS)}) through "
+        f"{list(FAR_PROFILES)}: tokens == device=\"cpu\"'s, round trips "
+        f"exact (flat, period {REPEATS[-1]}: longest match {longest})")
+    arr = np.frombuffer(piece, np.uint8).astype(np.int32)
+    pairs = sorted({(c.window, c.search_cap) for c in PROFILES.values()})
+    for window, cap in pairs:
+        got, want = (stream._best_matches_host(arr, len(piece), window=window,
+                                               cap=cap, device=dev)
+                     for dev in (device, "cpu"))
+        if not all(np.array_equal(g, w) for g, w in zip(got, want,
+                                                         strict=True)):
+            raise AssertionError(f"_best_matches_host (window {window}, cap "
+                                 f"{cap}): the card differs from the CPU")
+    mbps = len(PROFILES) * len(piece) / wall / 1e6
+    log("coders", f"match tables on the card == device=\"cpu\" at "
+        f"(window, cap) {pairs}; the profiles and repeats {mbps:.4f} MB/s of "
+        f"profile input (host clock, information)")
+    return counts
+
+
+def cli_raw_chains(data: bytes, native_compress) -> tuple[bytes, bytes]:
+    """The raw files the CLI phase decodes: the C encoder's blocks of the
+    corpus's first CLI_BLOCKS blocks, and of the whole corpus (what the
+    CLI's compress writes, which phase 9 checks)."""
+    blocks = [native_compress(data[s:s + BLOCK])
+              for s in range(0, len(data), BLOCK)]
+    return b"".join(blocks[:CLI_BLOCKS]), b"".join(blocks)
+
+
+def cli_drive(data: bytes, work: pathlib.Path, device: torch.device,
+              native) -> dict:
+    """The CLI's calls on files under ``work`` (cli.main in this
+    process, ``--device`` the card): (a) raw blocks of the corpus, (b)
+    decompress of its first CLI_BLOCKS blocks' raw file, (c) of the whole
+    raw file, (d)
+    container and lazy container round trips, (e) --stream of the first
+    STREAM_SIZE bytes. Returns {call: (seconds, stderr)}."""
+    native_compress, _ = native
+    src = work / "corpus.bin"
+    src.write_bytes(data)
+    (work / "slice.bin").write_bytes(data[:STREAM_SIZE])
+    pieces = [data[s:s + BLOCK] for s in range(0, CLI_BLOCKS * BLOCK, BLOCK)]
+    head = sum(len(native_compress(p)) for p in pieces)
+    calls = {}
+
+    def run(name: str, *argv: str) -> None:
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([*argv, "--device", str(device)])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"cli {name}: exit code {rc}")
+        calls[name] = (time.perf_counter() - t0, err.getvalue())
+
+    run("compress", "compress", "-v", str(src), str(work / "raw.lzs"))
+    (work / "head.lzs").write_bytes((work / "raw.lzs").read_bytes()[:head])
+    run("decompress head", "decompress", "-v", str(work / "head.lzs"),
+        str(work / "head.out"))
+    run("decompress", "decompress", "-v", str(work / "raw.lzs"),
+        str(work / "raw.out"))
+    for name, flags in (("container", ()), ("container lazy", ("--lazy",))):
+        run(f"compress {name}", "compress", "--container", *flags, "-v",
+            str(src), str(work / f"{name}.lzst"))
+        run(f"decompress {name}", "decompress", "-v",
+            str(work / f"{name}.lzst"), str(work / f"{name}.out"))
+    run("compress stream", "compress", "--stream", "-v",
+        str(work / "slice.bin"), str(work / "slice.lzs"))
+    return calls
+
+
+def _route(stderr: str) -> str:
+    return next(line.split(": ", 1)[1] for line in stderr.splitlines()
+                if line.startswith("route: "))
+
+
+def phase_cli(data: bytes, device: torch.device, native) -> dict[str, int]:
+    """The CLI in this process on temporary files under build/ (counters
+    reset just before): every output checked against the C codec or the
+    input, each call's host-clock MB/s and route printed (information)."""
+    native_compress, native_decompress = native
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        work = pathlib.Path(tmp)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        calls = cli_drive(data, work, device, native)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        raw = (work / "raw.lzs").read_bytes()
+        expect = b"".join(native_compress(data[s:s + BLOCK])
+                          for s in range(0, len(data), BLOCK))
+        if raw != expect or native_decompress(raw, len(data)) != data:
+            raise AssertionError("cli compress: raw blocks differ from the C "
+                                 "encoder, or the C decoder does not read "
+                                 "them back")
+        for name, out, plain, route in (
+                ("decompress head", "head.out", data[:CLI_BLOCKS * BLOCK],
+                 "device"),
+                ("decompress", "raw.out", data, "device"),
+                ("decompress container", "container.out", data,
+                 "device, container"),
+                ("decompress container lazy", "container lazy.out", data,
+                 "device, container")):
+            if (work / out).read_bytes() != plain:
+                raise AssertionError(f"cli {name}: output differs")
+            if _route(calls[name][1]) != route:
+                raise AssertionError(f"cli {name}: route "
+                                     f"{_route(calls[name][1])!r}, not "
+                                     f"{route!r}")
+        if (work / "slice.lzs").read_bytes() != native_compress(
+                data[:STREAM_SIZE]):
+            raise AssertionError("cli --stream differs from the C encoder's "
+                                 "one-shot bytes")
+        sizes = {"compress": len(data), "decompress head": CLI_BLOCKS * BLOCK,
+                 "compress stream": STREAM_SIZE}
+        for name, (dt, err) in calls.items():
+            size = sizes.get(name, len(data))
+            route = (f", route {_route(err)}" if "route: " in err else "")
+            log("cli", f"{name}: {size / dt / 1e6:.4f} MB/s ({1e3 * dt:.1f} "
+                f"ms, host clock){route}")
+        with trace.stage_times() as times:
+            cli._decompress_raw_device(raw, device)
+        if set(times) != set(trace.RAW_STAGES):
+            raise AssertionError(f"raw stages timed: {sorted(times)}")
+        log("cli", f"the whole raw file's decode ({len(raw)} bytes in, "
+            f"windows of {bitpar.MAX_OUT_CAP}), stages ms: " + ", ".join(
+                f"{s} {1e3 * times[s]:.1f}" for s in trace.RAW_STAGES))
+    log("cli", f"raw blocks == the C encoder, read back by the C decoder; "
+        f"the first {CLI_BLOCKS} blocks' raw file and the whole raw file "
+        f"(past 2^18 output bytes, in windows) decoded on the card; "
+        f"container and lazy container round trips exact; --stream == the "
+        f"C encoder's one-shot bytes")
+    return counts
+
+
+def build_dir() -> pathlib.Path:
+    """The checkout's ignored build directory (temporary files go there)."""
+    path = ROOT / "build"
+    path.mkdir(exist_ok=True)
+    return path
+
+
+@contextlib.contextmanager
+def world_of_one(device: torch.device):
+    """The default process group as a world of one (NCCL on the card; a
+    FileStore under build/), destroyed on exit."""
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        parallel.initialize_distributed(f"file://{tmp}/store", 1, 0,
+                                        device_type=device.type)
+        try:
+            yield
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def dist_drive(data: bytes, device: torch.device):
+    """(codec, its compress of ``data``, the decompress of that) with
+    DistributedCodec on the default group's mesh."""
+    codec = parallel.DistributedCodec(parallel.make_block_mesh(device.type),
+                                      block=BLOCK)
+    comp = codec.compress(data)
+    return codec, comp, codec.decompress(*comp[:4], pad_blocks(data, BLOCK)[1])
+
+
+def _median_walls(calls: dict, runs: int = 3) -> dict[str, float]:
+    """Median host-clock ms (synchronised) of each call, run in turns."""
+    walls = {name: [] for name in calls}
+    for _ in range(runs):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+    return {name: sorted(w)[len(w) // 2] for name, w in walls.items()}
+
+
+def phase_dist(data: bytes, device: torch.device) -> dict[str, int]:
+    """DistributedCodec on an NCCL world of one (counters reset just
+    before): its payload and sync arrays equal BlockCodec's on the card,
+    and its decompress is exact; then both codecs' compress walls, in
+    turns (information)."""
+    codec = BlockCodec(block=BLOCK, device=device)
+    with world_of_one(device):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        dcodec, (payload, clens, sbit, sout, nsync), out = dist_drive(
+            data, device)
+        torch.cuda.synchronize()
+        counts = _kernels.launch_counts()
+        walls = _median_walls({
+            "DistributedCodec": lambda: dcodec.compress(data),
+            "BlockCodec": lambda: codec.compress(data, container=False)})
+    x, lens = pad_blocks(data, BLOCK)
+    _, want_clen, want_sbit, want_sout, want_nsync = (
+        t.cpu().numpy() for t in codec.encode_batch(
+            torch.from_numpy(x).to(device), torch.from_numpy(lens).to(device)))
+    if payload != codec.compress(data, container=False):
+        raise AssertionError("dist payload differs from BlockCodec's")
+    for name, got, want in (("clens", np.asarray(clens), want_clen),
+                            ("sbit", sbit, want_sbit),
+                            ("sout", sout, want_sout),
+                            ("nsync", nsync, want_nsync)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"dist {name} differs from BlockCodec's")
+    if out != data:
+        raise AssertionError("dist round trip differs")
+    log("dist", f"DistributedCodec(block={BLOCK}) on an NCCL world of "
+        f"{dcodec.ndev}: payload ({len(payload)} bytes), clens, sbit, sout "
+        f"and nsync == BlockCodec on the card; decompress exact")
+    log("dist", "compress wall ms (host clock, median of 3, in turns): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+    return counts
+
+
 def phase_counts(counts: dict[str, dict[str, int]]) -> None:
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if counts[path][k] <= 0]
@@ -1032,6 +1370,9 @@ def main() -> None:
     counts["scan"] = phase_scan(data, device, native, raw_ms)
     counts["stream"], counts["stream_block"] = phase_stream(data, device,
                                                             native)
+    counts["coders"] = phase_coders(data, device, native)
+    counts["cli"] = phase_cli(data, device, native)
+    counts["dist"] = phase_dist(data, device)
     phase_counts(counts)
     phase_corrupt(blob, codec)
     kernels = [{"name": k.name, "route": "cuda", "source": k.source,

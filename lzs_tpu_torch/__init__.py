@@ -7,6 +7,8 @@ its reference: every stage here matches its counterpart exactly.
 Layout (mirrors ``lzs_tpu``):
   spec.py        wire-format constants
   reference.py   the NumPy model of the codec (host oracle)
+  coders.py      generalized pluggable offset/length coders + the
+                 GeneralCodec pipeline (its match search on the card)
   stream.py      streaming codec with carried window state: match search
                  on the card, walk and emission on the host
   ops/           the container codec path and the raw-stream decoder:
@@ -28,6 +30,9 @@ Layout (mirrors ``lzs_tpu``):
                    _kernels.py   nvcc build, ctypes loader, launch counts
   csrc/          the hand-written CUDA kernels (sm_90a)
   blocks.py      BlockCodec and the container framing
+  parallel/      block data parallelism over ranks (torch.distributed)
+  models/        named codec profiles
+  cli.py         file-to-file compress/decompress
   convert.py     codec settings and batch arrays across the two packages
   trace.py       named stage spans (profiler annotations, stage times)
   utils/         the native C++ runtime's binding (native.py), token
@@ -36,9 +41,11 @@ Layout (mirrors ``lzs_tpu``):
 A kernel runs for a tensor on a CUDA device; a tensor on the CPU runs
 the kernel's plain torch version. Nothing falls back. The entry points
 (``BlockCodec``, ``ops.decode.decode_bytes``, ``ops.encode.encode_bytes``,
-``StreamCompressor``, ``stream.compress_stream``,
-``convert.codec_from_jax``, ``convert.stream_state_from_jax``) run on the
-card unless the caller asks for ``device="cpu"``.
+``StreamCompressor``, ``stream.compress_stream``, ``GeneralCodec``,
+``models.get_profile``, ``parallel.DistributedCodec``, the CLI,
+``convert.codec_from_jax``, ``convert.stream_state_from_jax``,
+``convert.general_codec_from_jax``) run on the card unless the caller
+asks for ``device="cpu"``.
 """
 
 from .spec import DEFAULT_CONFIG, LzsConfig, compressed_max
@@ -47,14 +54,18 @@ from .blocks import BlockCodec
 
 __version__ = "0.1.0"
 
-__all__ = ["BlockCodec", "DEFAULT_CONFIG", "LzsConfig", "StreamCompressor",
-           "StreamDecompressor", "compressed_max", "lzs_compress",
-           "lzs_decompress"]
+__all__ = ["BlockCodec", "DEFAULT_CONFIG", "GeneralCodec", "LzsConfig",
+           "StreamCompressor", "StreamDecompressor", "compressed_max",
+           "lzs_compress", "lzs_decompress"]
 
 
 def __getattr__(name):
-    # the streaming classes load on first use, as in the JAX package
+    # the streaming classes and the coders load on first use, as in the
+    # JAX package
     if name in ("StreamCompressor", "StreamDecompressor"):
         from . import stream
         return getattr(stream, name)
+    if name == "GeneralCodec":
+        from .coders import GeneralCodec
+        return GeneralCodec
     raise AttributeError(name)

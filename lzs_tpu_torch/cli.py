@@ -1,0 +1,170 @@
+"""File-to-file compression CLIs (port of ``lzs_tpu.cli``).
+
+Matches the reference CLI contract (c/src/utils/lzs-compress.c:60-76,
+python/lzs-compress.py:44-49): ``lzs-compress INFILE OUTFILE`` /
+``lzs-decompress INFILE OUTFILE`` produce/consume raw LZS streams that
+interoperate with the reference implementations.
+
+The default compress path is the batch pipeline on ``--device`` (the
+CUDA card unless the caller names another), emitting raw concatenated
+per-block streams: each block an independent LZS stream with its own end
+marker, which the reference incremental decoder (the reference CLI
+default, lzs-decompression.c:559-576) decodes as one stream. ``--stream``
+selects the carried-window streaming codec instead (one continuous
+stream, byte-identical to the reference incremental encoder; its match
+search on ``--device``). ``--container`` adds the framing that enables
+the sync-parallel decoder.
+
+A raw stream decodes on ``--device`` (engine "bits", multi-stream), up
+to 32 MiB of input (``ops.bitpar.MAX_WIDE_INPUT``): past 2^18 output
+bytes the decoder expands its output in windows (``ops.bitpar``). The JAX package's CLI sends such a stream to
+its host decoder instead; this one has no host route. ``-v`` prints the
+route taken. Any failure on the device raises; nothing falls back.
+
+Usage:
+    python -m lzs_tpu_torch.cli compress   [--container | --stream] IN OUT
+    python -m lzs_tpu_torch.cli decompress [--container] IN OUT
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import struct
+import sys
+
+import numpy as np
+import torch
+
+
+def _compress(args) -> int:
+    from .blocks import BlockCodec
+    from .stream import compress_stream
+
+    data = pathlib.Path(args.infile).read_bytes()
+    policy = "lazy" if args.lazy else "greedy"
+    if args.container:
+        out = BlockCodec(block=args.block, policy=policy,
+                         device=args.device).compress(data)
+    elif args.stream:
+        if args.lazy:
+            raise SystemExit("--lazy needs the device batch path "
+                             "(--blocks or --container)")
+        out = compress_stream(data, feed_size=args.block, device=args.device)
+    else:
+        out = BlockCodec(block=args.block, policy=policy,
+                         device=args.device).compress(data, container=False)
+    pathlib.Path(args.outfile).write_bytes(out)
+    if args.verbose:
+        ratio = len(out) / max(len(data), 1)
+        print(f"{len(data)} -> {len(out)} bytes ({ratio:.1%})",
+              file=sys.stderr)
+    return 0
+
+
+def _decompress_raw_device(data: bytes, device) -> bytes:
+    """Decode a raw (reference-format) stream chain on ``device``.
+
+    The per-bit parallel decoder (``ops.decode``, engine "bits") with
+    multi-stream semantics, on the input padded to a power of two, and a
+    geometric output-capacity retry from 4 times the input: the JAX
+    package's rule, without its limits. Where JAX hands the stream to
+    its host decoder (a capacity past 2^18, or past 16 times the input,
+    the reference's expansion bound, lzs.h:79-81) the capacity here
+    goes on doubling on the device. A stream's output is at most 30
+    times its input (15 bytes per 4-bit extension nibble), so a few
+    doublings hold any stream. Errors raise.
+    """
+    from .ops import decode as dec_ops
+
+    if not data:
+        return b""
+    n = len(data)
+    in_cap = 1 << max(9, (n - 1).bit_length())
+    buf = np.zeros(in_cap, np.uint8)
+    buf[:n] = np.frombuffer(data, np.uint8)
+    comp = torch.from_numpy(buf).to(device)
+    nt = torch.tensor(n, dtype=torch.int32, device=comp.device)
+    max_units = in_cap * 2 + 16
+    cap = 1 << max(12, (4 * n - 1).bit_length())
+    while True:
+        out, out_len, _ = dec_ops.decode_block(
+            comp, nt, out_cap=cap, max_units=max_units, multi_stream=True)
+        if int(out_len) < cap:
+            return out[:int(out_len)].cpu().numpy().tobytes()
+        cap *= 2
+
+
+def _decompress(args) -> int:
+    data = pathlib.Path(args.infile).read_bytes()
+    if args.container or data[:4] == b"LZST":
+        from .blocks import BlockCodec
+        block = struct.unpack_from("<I", data, 8)[0]
+        span = struct.unpack_from("<H", data, 6)[0]
+        out = BlockCodec(block=block, span=span,
+                         device=args.device).decompress(data)
+        route = "device, container"
+    else:
+        out = _decompress_raw_device(data, args.device)
+        route = "device"
+    pathlib.Path(args.outfile).write_bytes(out)
+    if args.verbose:
+        print(f"{len(data)} -> {len(out)} bytes", file=sys.stderr)
+        print(f"route: {route}", file=sys.stderr)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="lzs_tpu_torch.cli", description=__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name, fn in (("compress", _compress), ("decompress", _decompress)):
+        p = sub.add_parser(name)
+        p.add_argument("infile")
+        p.add_argument("outfile")
+        p.add_argument("--container", action="store_true",
+                       help="block-parallel container framing")
+        p.add_argument("--block", type=int, default=1 << 15,
+                       help="block / feed size")
+        p.add_argument("--device", default="cuda",
+                       help="torch device of the device work (default "
+                            "cuda; cpu runs the kernels' plain versions)")
+        p.add_argument("-v", "--verbose", action="store_true")
+        p.set_defaults(fn=fn)
+        if name == "compress":
+            p.add_argument("--stream", action="store_true",
+                           help="carried-window streaming codec (one "
+                                "continuous stream, byte-identical to the "
+                                "reference incremental encoder)")
+            p.add_argument("--blocks", action="store_true",
+                           help="(default) raw concatenated per-block "
+                                "streams via the batch pipeline")
+            p.add_argument("--lazy", action="store_true",
+                           help="1-token-lookahead match selection "
+                                "(usually smaller output; still a valid "
+                                "LZS stream, decodable by the reference "
+                                "decoder)")
+        else:
+            p.set_defaults(blocks=False, stream=False)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+def main_compress(argv=None) -> int:
+    """``lzs-compress INFILE OUTFILE`` — the reference's two-argument CLI
+    contract (c/src/utils/lzs-compress.c:60-76)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return main(["compress"] + argv)
+
+
+def main_decompress(argv=None) -> int:
+    """``lzs-decompress INFILE OUTFILE`` (c/src/utils/lzs-decompress.c)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return main(["decompress"] + argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,11 +1,11 @@
 """Carry codec state between the JAX package and the port.
 
 The codec has no weights: its state is its settings, the batch arrays
-that pass between the encoder and the decoder, and a stream's
-checkpoint. These helpers move them without importing jax: a JAX
-``BlockCodec`` is read through its plain attributes, batch arrays cross
-as numpy, and a stream checkpoint (``state_dict()``, plain data) becomes
-the port's stream object.
+that pass between the encoder and the decoder, a stream's checkpoint and
+a generalized codec's coders. These helpers move them without importing
+jax: a JAX ``BlockCodec`` or ``GeneralCodec`` is read through its plain
+attributes, batch arrays cross as numpy, and a stream checkpoint
+(``state_dict()``, plain data) becomes the port's stream object.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import stream
+from . import coders, stream
 from .blocks import BlockCodec
 
 #: batch arrays of the container path and the raw decoder, and their
@@ -85,3 +85,33 @@ def stream_state_from_jax(state: dict, device: torch.device | str = "cuda"):
         if set(state) == fields:
             return cls(**state, **extra)
     raise KeyError(f"not a JAX stream state: keys {sorted(state)}")
+
+
+#: the coder classes that ``general_codec_from_jax`` carries across
+_CODERS = ("StandardOffsetCoder", "BiasedOffsetCoder", "FixedOffsetCoder",
+           "PrefixLengthCoder")
+
+
+def _plain_ints(v):
+    """An int, or nested tuples of ints, as Python ints."""
+    return tuple(map(_plain_ints, v)) if isinstance(v, tuple) else int(v)
+
+
+def _coder_from_jax(coder):
+    name = type(coder).__name__
+    if name not in _CODERS:
+        raise TypeError(f"not a JAX coder: {coder!r}")
+    cls = getattr(coders, name)
+    return cls(**{f.name: _plain_ints(getattr(coder, f.name))
+                  for f in dataclasses.fields(cls)})
+
+
+def general_codec_from_jax(codec, *,
+                           device: torch.device | str = "cuda"
+                           ) -> coders.GeneralCodec:
+    """The port's GeneralCodec with a JAX ``GeneralCodec``'s coders, field
+    by field, its match search on ``device`` (the CUDA card unless the
+    caller names another)."""
+    return coders.GeneralCodec(_coder_from_jax(codec.offset_coder),
+                               _coder_from_jax(codec.length_coder),
+                               device=str(device))

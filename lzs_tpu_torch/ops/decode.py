@@ -17,11 +17,13 @@ Port of ``lzs_tpu.ops.decode``'s entry points and both of its engines:
           the parse launches ``csrc/scan_parse.cu``; on a CPU tensor it
           runs ``_parse_scan_plain``, a torch loop over the steps.
 
-Both engines take ``out_cap`` up to ``MAX_OUT_CAP`` = 2^18 and raise
-ValueError above it: the records pack the output position as
-``opos << 13`` into int32. (JAX's scan engine takes any out_cap and packs
-positions from 2^18 on into the sign bit and past it, which corrupts its
-output: ROADMAP F9.)
+Engine "bits" takes any ``out_cap`` up to ``bitpar.MAX_WIDE_OUT_CAP``:
+past ``MAX_OUT_CAP`` = 2^18 it expands its output in windows of 2^18
+bytes (``bitpar._expand_windows``). Engine "scan" takes ``out_cap`` up to
+2^18 and raises ValueError above it: its records pack the output position
+as ``opos << 13`` into int32. (JAX sends any out_cap past 2^18 to its scan
+engine, which packs positions from 2^18 on into the sign bit and past it
+and so corrupts its output: ROADMAP F9.)
 
 ``max_units`` (the scan's step budget, ``default_max_units`` when None)
 is taken by every entry point, as in JAX; engine "bits" does not read
@@ -56,11 +58,13 @@ def default_max_units(out_cap: int) -> int:
 def _check_args(out_cap: int, max_units: int, engine: str) -> None:
     if engine not in ("bits", "scan"):
         raise ValueError(f"unknown engine {engine!r}")
-    if not 0 < out_cap <= MAX_OUT_CAP:
+    # engine "bits" checks its own bounds (bitpar.decode_batch_bits)
+    if engine == "scan" and not 0 < out_cap <= MAX_OUT_CAP:
         raise ValueError(
-            f"out_cap {out_cap} outside (0, {MAX_OUT_CAP}]: records pack "
-            "the output position as opos << 13 into int32, which holds "
-            "positions below 2^18 only (ROADMAP F9)")
+            f"out_cap {out_cap} outside (0, {MAX_OUT_CAP}] of engine "
+            "\"scan\": its records pack the output position as opos << 13 "
+            "into int32, which holds positions below 2^18 only (ROADMAP "
+            "F9); engine \"bits\" takes a wider out_cap")
     if max_units < 0:
         raise ValueError(f"max_units {max_units} < 0")
 

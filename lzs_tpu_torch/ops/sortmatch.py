@@ -26,6 +26,10 @@ derivation of every step. What differs here:
     positions.
   * The probe's gram words and byte-aligned spans are uint32 values held
     in int64 (the gathered words themselves are int32 bit patterns).
+  * The probe's lanes carry the whole offset, so windows past 2047 (the
+    generalized coders' profiles) extend their runs exactly, as JAX's
+    one-block ``_extend`` does; JAX's batch form clips lane offsets at
+    0x7FF.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .. import spec, trace
 from . import pcand, pext, pgather
 
 _BIG = 0x3FFFFFFF
+_NO_LANE = 0x7FFFFFFF  # above every probe lane key i << 15 | doff
 _PROBE_CAP = 1024     # compacted probe lanes per row and wave
 _T1_WORDS = 12        # tier-1 compare span: 12 words = 48 bytes
 
@@ -152,12 +157,15 @@ def _probe_batch(x: torch.Tensor, n: torch.Tensor, doff: torch.Tensor,
     remaining = active
     length = torch.zeros((b, npos), dtype=torch.int32, device=dev)
     while bool(remaining.any()):
-        packed = torch.where(remaining, (i << 11) | doff.clamp(max=0x7FF),
-                             _BIG)
+        # lane keys i << 15 | doff carry the whole offset (off <= i <
+        # 2^15): JAX's batch form keeps 11 bits, so its probes at offsets
+        # past 2047 compare at 2047; its one-block form, which its CPU
+        # path runs, and this one take the offset itself
+        packed = torch.where(remaining, (i << 15) | doff, _NO_LANE)
         srt = torch.sort(packed, dim=1).values[:, :p]
-        lanes = srt < _BIG
-        cdoff = (srt & 0x7FF).clamp(min=1)
-        cbase = torch.where(lanes, srt >> 11, 0) + cap
+        lanes = srt < _NO_LANE
+        cdoff = (srt & 0x7FFF).clamp(min=1)
+        cbase = torch.where(lanes, srt >> 15, 0) + cap
         a = cbase.clamp(0, npos - 1)
         bpos = a - torch.minimum(cdoff, a)
 

@@ -123,6 +123,24 @@ def test_probe_waves_match_direct_runs():
                                   _direct_runs(x, n, doff, active, 12))
 
 
+def test_probe_far_offsets_match_direct_runs():
+    """Offsets past 2047 (the generalized coders' windows, up to 4095 and
+    the block's reach): each lane compares at its own offset."""
+    rng = np.random.default_rng(8)
+    npos = 8192
+    period = rng.integers(0, 256, 3000)
+    x = np.stack([np.tile(period, 3)[:npos],
+                  rng.integers(0, 2, npos)]).astype(np.int32)
+    n = np.array([npos, npos - 5], np.int32)
+    active = rng.random((2, npos)) < 0.3
+    doff = np.minimum(rng.choice([2047, 2048, 3000, 4095, 8000], (2, npos)),
+                      np.arange(npos) + 1).astype(np.int32)
+    got = sortmatch._probe_batch(_t(x), _t(n), _t(doff), _t(active), 12)
+    want = _direct_runs(x, n, doff, active, 12)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[0][doff[0] == 3000].max() > 4 * 12    # tier 2 ran
+
+
 @pytest.mark.parametrize("b", [3, 8])
 def test_probe_matches_jax_probe_batch(b):
     """The port's wave-form probe against JAX's (gather_big, rank_mask

@@ -36,7 +36,11 @@ codec's match search runs at batch 1: both backends at every pool of
 the stream (256 to 32768, n at the pool and below it) with every kernel
 call held to its plain version, the exhaustive plane's K7 rows at batch
 33, and 256 KiB of the bench corpus streamed on the card against the
-CPU and the C encoder.
+CPU and the C encoder. The codec profiles' match tables (windows 2047,
+2174, 4095) and far-offset tokens equal the CPU's on the card; the raw
+decoder's windows past 2^18 output bytes equal the CPU and the input;
+the CLI's raw decode takes the device route at every size; and
+DistributedCodec on an NCCL world of one equals BlockCodec.
 """
 
 import json
@@ -1230,3 +1234,113 @@ def test_stream_on_card_equals_cpu(cuda, backend):
         assert counts["rowscan_rcummin"] > 0 and counts["perk_level"] == 0
     assert got == run("cpu") == native.compress(data)
     assert stream.decompress_stream(got) == data
+
+
+def test_profile_tables_card_equals_cpu(cuda):
+    """The codec profiles' match search on the card: each distinct
+    (window, cap) table over 32768 bytes of the bench corpus equals the
+    CPU's, and the far-offset repeat inputs give the CPU's tokens."""
+    from bench import make_corpus
+    from lzs_tpu_torch import stream
+    from lzs_tpu_torch.models import PROFILES, get_profile
+
+    data = make_corpus(1 << 15)
+    arr = np.frombuffer(data, np.uint8).astype(np.int32)
+    pairs = sorted({(c.window, c.search_cap) for c in PROFILES.values()})
+    assert pairs == [(2047, 12), (2174, 12), (4095, 12)]
+    for window, cap in pairs:
+        got, want = (stream._best_matches_host(arr, len(data), window=window,
+                                               cap=cap, device=dev)
+                     for dev in (cuda, "cpu"))
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g, w)
+    rng = np.random.default_rng(0)
+    for period in (2100, 3000):
+        block = rng.integers(0, 256, period, dtype=np.uint8).tobytes() * 2
+        for name in ("reach", "flat", "bounded"):
+            toks = get_profile(name).compress(block)
+            assert toks == get_profile(name, device="cpu").compress(block)
+            assert get_profile(name).decompress(toks) == block
+
+
+def test_wide_raw_decode_on_card(cuda):
+    """Engine "bits" past 2^18 output bytes on the card, in windows: 1 MiB
+    of the bench corpus as one C-encoded stream at out_cap 2^20, and 1
+    MiB of zeros (copies that run across windows) at 2^21, as a batch of
+    both rows, equal the CPU's decode (bytes, lengths, end markers) and
+    the inputs; the windows launch the fill and the expansion."""
+    from bench import make_corpus
+    from lzs_tpu_torch.ops import decode
+    from lzs_tpu_torch.utils import native
+
+    datas = [make_corpus(1 << 20), bytes(1 << 20)]
+    streams = [native.compress(d) for d in datas]
+    buf = np.zeros((2, max(map(len, streams))), np.uint8)
+    for i, st in enumerate(streams):
+        buf[i, :len(st)] = np.frombuffer(st, np.uint8)
+    lens = torch.tensor([len(st) for st in streams], dtype=torch.int32)
+    _kernels.reset_launches()
+    got = decode.decode_batch(torch.from_numpy(buf).to(cuda), lens.to(cuda),
+                              out_cap=1 << 21, multi_stream=True)
+    counts = _kernels.launch_counts()
+    assert counts["rowscan_cummax"] > 8 and counts["expand"] > 8
+    want = decode.decode_batch(torch.from_numpy(buf), lens, out_cap=1 << 21,
+                               multi_stream=True)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+    for i, d in enumerate(datas):
+        assert want[0][i, :int(want[1][i])].numpy().tobytes() == d
+
+
+def test_cli_raw_decode_takes_the_device_route(cuda, tmp_path):
+    """The CLI's raw decode on the card (its default device): four blocks
+    of the bench corpus (a ~53 KB stream) decode at out_cap 2^18, and
+    sixteen blocks (past 2^18 output bytes, which JAX's CLI decodes on
+    the host) in windows, through the raw decoder's kernels."""
+    import contextlib
+    import io
+
+    from bench import make_corpus
+    from lzs_tpu_torch import cli
+    from lzs_tpu_torch.utils import native
+
+    data = make_corpus(1 << 19)
+    for size in (1 << 17, 1 << 19):
+        src, out = tmp_path / f"{size}.lzs", tmp_path / f"{size}.out"
+        src.write_bytes(b"".join(native.compress(data[s:s + (1 << 15)])
+                                 for s in range(0, size, 1 << 15)))
+        err = io.StringIO()
+        _kernels.reset_launches()
+        with contextlib.redirect_stderr(err):
+            assert cli.main(["decompress", "-v", str(src), str(out)]) == 0
+        counts = _kernels.launch_counts()
+        assert out.read_bytes() == data[:size]
+        assert "route: device\n" in err.getvalue()
+        assert counts["walk_tables"] > 0 and counts["expand"] > 0
+
+
+def test_distributed_codec_nccl_world_of_one(cuda, tmp_path):
+    """DistributedCodec on an NCCL world of one equals BlockCodec on the
+    card (payload and sync arrays) and round-trips."""
+    import torch.distributed as dist
+
+    from bench import make_corpus
+    from lzs_tpu_torch import parallel
+
+    data = make_corpus(5 * 32768 + 100)
+    parallel.initialize_distributed(f"file://{tmp_path}/store", 1, 0)
+    try:
+        codec = parallel.DistributedCodec(parallel.make_block_mesh(),
+                                          block=32768)
+        payload, clens, sbit, sout, nsync = codec.compress(data)
+        lens = pad_blocks(data, 32768)[1]
+        assert codec.decompress(payload, clens, sbit, sout, lens) == data
+    finally:
+        dist.destroy_process_group()
+    ref = BlockCodec(block=32768, device=cuda)
+    assert payload == ref.compress(data, container=False)
+    x = torch.from_numpy(pad_blocks(data, 32768)[0]).to(cuda)
+    want = ref.encode_batch(x, torch.from_numpy(lens).to(cuda))
+    for got, w in zip((np.asarray(clens), sbit, sout, nsync), want[1:],
+                      strict=True):
+        np.testing.assert_array_equal(got, w.cpu().numpy())

@@ -11,7 +11,10 @@ at batch >= 32 with both ``multi_stream`` values, on the fuzz set of
 tests/test_ops.py (concatenated and truncated rows included), the edge
 cases of tests/test_ops.py, a 2^18-byte output checked against
 ``lzs_tpu.reference``, and the port's own block payloads through
-``BlockCodec.decode_batch_raw``.
+``BlockCodec.decode_batch_raw``. Past 2^18 output bytes, where JAX's
+decoder corrupts its output (ROADMAP F9), engine "bits" expands in
+windows: held to the one-row expansion with narrow windows, and to
+``lzs_tpu.reference`` and the input at out_cap 2^19 and 2^20.
 """
 
 import functools
@@ -251,24 +254,100 @@ def test_decode_block_at_max_out_cap_matches_reference():
 @pytest.mark.parametrize("engine", ["bits", "scan"])
 def test_out_cap_over_max_raises(engine):
     """Past 2^18 output bytes a record's opos << 13 leaves int32 (F9):
-    both engines refuse such an out_cap, through every entry point."""
+    engine "scan" refuses such an out_cap, through every entry point;
+    engine "bits" expands in windows there and refuses an out_cap past
+    its own bound, 2^30."""
     buf = torch.zeros((1, 8), dtype=torch.uint8)
     n = torch.zeros(1, dtype=torch.int32)
-    over = bitpar.MAX_OUT_CAP + 1
+    if engine == "scan":
+        over, match = bitpar.MAX_OUT_CAP + 1, "opos << 13"
+    else:
+        over, match = bitpar.MAX_WIDE_OUT_CAP + 1, "outside"
     for max_units in (None, decode.default_max_units(64), 32):
-        with pytest.raises(ValueError, match="opos << 13"):
+        with pytest.raises(ValueError, match=match):
             decode.decode_batch(buf, n, out_cap=over, max_units=max_units,
                                 engine=engine)
-        with pytest.raises(ValueError, match="opos << 13"):
+        with pytest.raises(ValueError, match=match):
             decode.decode_block(buf[0], n[0], out_cap=over,
                                 max_units=max_units, engine=engine)
-        with pytest.raises(ValueError, match="opos << 13"):
+        with pytest.raises(ValueError, match=match):
             decode.make_decoder(8, over, max_units=max_units,
                                 engine=engine)(buf, n)
-    with pytest.raises(ValueError, match="opos << 13"):
+    with pytest.raises(ValueError, match=match):
         decode.decode_bytes(b"", over, engine=engine, device="cpu")
     with pytest.raises(ValueError):
         bitpar.decode_batch_bits(buf, n, out_cap=0)
+
+
+def _wide_chains():
+    """Chains whose decodes cross many narrow windows: text, 15000 zeros
+    (copies that run across windows) and text again as one multi-stream
+    chain; one long stream; noise; an empty row; the zeros alone."""
+    from test_stream import mixed_data
+
+    data = mixed_data(9, 20000)
+    parts = [native.compress(data[:7000]), native.compress(bytes(15000)),
+             native.compress(data[7000:])]
+    noise = np.random.default_rng(5).integers(0, 256, 3000, dtype=np.uint8)
+    return [b"".join(parts), native.compress(data), noise.tobytes(), b"",
+            parts[1]]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("rows", ["fuzz", "chains"])
+def test_wide_windows_equal_one_row(fuzz, monkeypatch, multi, rows):
+    """The windowed expansion equals the one-row expansion, bitwise
+    (bytes, lengths, end markers): with windows of 256 new bytes behind
+    the 2048 bytes of history (``_ROW`` cut to 2304), on the fuzz set
+    (batch 32) and on chains of text, zeros and noise, at out_caps that
+    end inside a window and past every output."""
+    if rows == "fuzz":
+        buf, lens = fuzz[:2]
+        caps = (2305, 4096)
+    else:
+        buf, lens = _batch(_wide_chains())
+        caps = (12293, 65536)
+    for out_cap in caps:
+        want = _port(buf, lens, out_cap=out_cap, multi_stream=multi)
+        with monkeypatch.context() as m:
+            m.setattr(bitpar, "_ROW", 2304)
+            got = _port(buf, lens, out_cap=out_cap, multi_stream=multi)
+        _assert_equal(got, want)
+    # some row's output spans three windows or more
+    assert want[1].max() > 2 * (2304 - 2048)
+
+
+def test_decode_past_2_18_equals_reference():
+    """Engine "bits" past 2^18 output bytes at full width, where JAX's
+    decoder goes to its scan engine and corrupts the output from 2^18 on
+    (F9): 300000 bytes at out_cap 2^19 and 600000 zeros at 2^20 equal
+    the input and ``lzs_tpu.reference``, through decode_bytes and a
+    batch of both rows."""
+    from test_stream import mixed_data
+
+    datas = [mixed_data(9, 300000), bytes(600000)]
+    streams = [native.compress(d) for d in datas]
+    for d, st, cap in zip(datas, streams, (1 << 19, 1 << 20)):
+        assert decode.decode_bytes(st, cap, device="cpu") == d
+        assert ref.lzs_decompress(st) == d
+    buf, lens = _batch(streams)
+    out, out_len, markers = _port(buf, lens, out_cap=1 << 20)
+    for i, d in enumerate(datas):
+        assert out[i, :out_len[i]].tobytes() == d
+        assert not out[i, out_len[i]:].any()
+    assert list(markers) == [1, 1]
+
+
+def test_wide_input_bound_raises(monkeypatch):
+    """Past 2^18 output bytes the input is bounded (its token lengths
+    sum in int32); narrower out_caps take any input."""
+    monkeypatch.setattr(bitpar, "MAX_WIDE_INPUT", 1024)
+    buf = torch.zeros((1, 2048), dtype=torch.uint8)
+    n = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^31"):
+        decode.decode_batch(buf, n, out_cap=bitpar.MAX_OUT_CAP + 1)
+    out, out_len, _ = decode.decode_batch(buf, n, out_cap=64)
+    assert out.shape == (1, 64) and int(out_len[0]) == 0
 
 
 @pytest.mark.parametrize("out_cap", [64, bitpar.MAX_OUT_CAP])

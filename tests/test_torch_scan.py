@@ -6,9 +6,13 @@ inputs made from a seed; exact equality (integers, tolerance 0). The
 match extension's fused scans (K4 ``ext_breaks``, K5 ``ext_fold``) read
 (score, off) from JAX's ``candidates`` on the blocks of
 tests/test_torch_pcand.py and ``ext_h`` from the port's probe; the probe
-rank (K6 ``rank_mask``) is held to JAX's on seeded masks.
+rank (K6 ``rank_mask``) is held to JAX's on seeded masks. The port's
+whole package imports no jax, and every public name of the JAX package
+has its counterpart in the port (by AST) but for the names that ROADMAP
+leaves out.
 """
 
+import ast
 import dataclasses
 import pathlib
 import subprocess
@@ -221,21 +225,117 @@ def test_scan_rejects_unsupported_device():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, lzs_tpu_torch, lzs_tpu_torch.blocks, "
-            "lzs_tpu_torch.convert\n"
-            "import lzs_tpu_torch.ops.encode, lzs_tpu_torch.ops.decode2\n"
-            "import lzs_tpu_torch.ops.decode, lzs_tpu_torch.ops.bitpar, "
-            "lzs_tpu_torch.ops.pwalk, lzs_tpu_torch.ops.pcand, "
-            "lzs_tpu_torch.ops.pgather\n"
-            "import lzs_tpu_torch.stream, lzs_tpu_torch.reference, "
-            "lzs_tpu_torch.utils.native, lzs_tpu_torch.utils.debug, "
-            "lzs_tpu_torch.ops.match\n"
-            "lzs_tpu_torch.StreamCompressor, lzs_tpu_torch.lzs_compress\n"
+    """Every module of the port (walked, not listed) and ``chip_smoke.py``
+    import neither jax nor the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import lzs_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages(\n"
+            "    lzs_tpu_torch.__path__, 'lzs_tpu_torch.')]\n"
+            "for name in mods:\n"
+            "    importlib.import_module(name)\n"
+            "import chip_smoke\n"
+            "lzs_tpu_torch.StreamCompressor, lzs_tpu_torch.GeneralCodec\n"
+            "for m in ('coders', 'models.profiles', 'cli', 'parallel.dist'):\n"
+            "    assert 'lzs_tpu_torch.' + m in mods, m\n"
             "assert 'jax' not in sys.modules, sorted(sys.modules)\n"
             "assert 'lzs_tpu' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
+
+
+#: public names of the JAX package that the port leaves out on purpose
+#: (ROADMAP's "Do not port" paragraph and Queue 1 item 2's TPU-form
+#: internals), by module
+NOT_PORTED = {
+    "ops/vgather.py": {"mxu_gather", "mxu_gather_wide", "mxu_span_gather"},
+    "ops/ppack.py": {"pack_phase"},
+    "ops/psync.py": {"sync_keys"},
+    "ops/sortmatch.py": {"small_extension"},
+}
+
+
+def _top_level(tree: ast.Module):
+    """A module's top-level statements, those in top-level if / try too."""
+    for node in tree.body:
+        yield node
+        if isinstance(node, ast.If):
+            yield from node.body
+            yield from node.orelse
+        elif isinstance(node, ast.Try):
+            yield from node.body
+            for handler in node.handlers:
+                yield from handler.body
+
+
+def _all(tree: ast.Module):
+    for node in _top_level(tree):
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return None
+
+
+def _bound(node) -> set[str]:
+    """Names a top-level definition or assignment binds."""
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                         ast.ClassDef)):
+        return {node.name}
+    if isinstance(node, ast.Assign):
+        return {n.id for t in node.targets for n in ast.walk(t)
+                if isinstance(n, ast.Name)}
+    if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+        return {node.target.id}
+    return set()
+
+
+def _public_names(path: pathlib.Path) -> set[str]:
+    """A JAX module's public names: its ``__all__``, else what it defines
+    (and, in a package's ``__init__``, what it imports from the package)
+    without a leading underscore."""
+    tree = ast.parse(path.read_text())
+    declared = _all(tree)
+    if declared is not None:
+        return declared
+    names = set()
+    for node in _top_level(tree):
+        names |= _bound(node)
+        if (path.name == "__init__.py" and isinstance(node, ast.ImportFrom)
+                and node.level):
+            names |= {a.asname or a.name for a in node.names}
+    return {n for n in names if not n.startswith("_")}
+
+
+def _present_names(path: pathlib.Path) -> set[str]:
+    """Every name a port module binds at top level, imported names and
+    its ``__all__`` (names it loads lazily) included."""
+    tree = ast.parse(path.read_text())
+    names = set(_all(tree) or ())
+    for node in _top_level(tree):
+        names |= _bound(node)
+        if isinstance(node, ast.Import):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+    return names
+
+
+def test_public_names_have_counterparts():
+    """Every public name of every ``lzs_tpu`` module (read by AST, no jax
+    import) is present in the port's module of the same path, apart from
+    NOT_PORTED: the port does everything the JAX package does."""
+    missing = {}
+    for src in sorted((REPO / "lzs_tpu").rglob("*.py")):
+        rel = src.relative_to(REPO / "lzs_tpu").as_posix()
+        port = REPO / "lzs_tpu_torch" / rel
+        have = _present_names(port) if port.exists() else set()
+        gone = _public_names(src) - have - NOT_PORTED.get(rel, set())
+        if gone:
+            missing[rel] = sorted(gone)
+    assert missing == {}
+    for rel, names in NOT_PORTED.items():
+        assert names <= _public_names(REPO / "lzs_tpu" / rel), rel
 
 
 def test_spec_constants_equal_jax_package():

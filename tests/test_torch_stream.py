@@ -396,8 +396,11 @@ def test_package_exports_stream_and_reference():
     assert lzs_tpu_torch.StreamDecompressor is stream.StreamDecompressor
     assert lzs_tpu_torch.lzs_compress is reference.lzs_compress
     assert lzs_tpu_torch.lzs_decompress is reference.lzs_decompress
+    from lzs_tpu_torch import coders
+
+    assert lzs_tpu_torch.GeneralCodec is coders.GeneralCodec
     with pytest.raises(AttributeError):
-        lzs_tpu_torch.GeneralCodec
+        lzs_tpu_torch.NotAName
 
 
 # --- the host model: reference.py against JAX's copy --------------------
