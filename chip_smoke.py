@@ -39,7 +39,10 @@ non-zero):
               step: its comparison's own call is its one timed call
               (ONE_SHOT), and the 2^18 stream's scan parse (some 69,000
               steps, over 30 s of plain loop) is held against engine "bits"
-              and the input instead (PLAIN_TOO_SLOW);
+              and the input instead (PLAIN_TOO_SLOW); the scan parse is
+              recorded in its filled form (the decode's), and its
+              step-major form (JAX's records) is held on the same inputs
+              against the plain loop on their CPU copies;
   4. main     BlockCodec(block=32768, device="cuda") compress + decompress
               of the corpus with every launch counter reset just before;
               the round trip must be exact, the raw payload must equal the
@@ -58,8 +61,12 @@ non-zero):
               with the counters reset just before: every block must equal
               its input, and (out, out_len, markers) engine "bits"'s,
               bitwise; its GB/s (host clock, synchronised) and device ms
-              beside phase 5's raw decode; then the 2^18 slice through
-              decode_block(engine="scan") (exact, its end marker read),
+              beside phase 5's raw decode; the parse's ns a step (kernel
+              time over the longest stream's steps) and its walker's
+              clock64 cycles a step, at 256 streams, 132 (one an SM) and
+              the longest stream alone; then the 2^18 slice through
+              decode_block(engine="scan") (exact, its end marker read,
+              the parse's ns and cycles a step),
               two C-encoded short pieces concatenated and decoded with
               multi_stream (both pieces, 2 markers), and the payload with a
               max_units that cuts every stream (each block a prefix of its
@@ -158,7 +165,7 @@ PATH_KERNELS = {
              "walk_descent", "parse"),
     "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
-    "scan": ("scan_parse", "rowscan_cummax", "expand"),
+    "scan": ("scan_parse", "expand"),
     "stream": ("perk_level", "ext_breaks", "ext_fold", "rank_mask",
                "gather_big", "rowscan_rcummin"),
 }
@@ -276,7 +283,8 @@ WRAPPERS = {
     "sync": (psync, "sync_records", psync.sync_records_plain),
     "expand": (pexpand, "expand_records", pexpand.expand_records_plain),
     "parse": (decode2, "_parse_flat", decode2._parse_flat_plain),
-    "scan_parse": (decode, "_parse_scan", decode._parse_scan_plain),
+    "scan_parse": (decode, "_parse_scan_filled",
+                   decode._parse_scan_filled_plain),
 }
 
 #: kernels whose plain version runs once per comparison, whose own call
@@ -349,6 +357,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: form, offset, length code, long test, length), its width and the gate
 #: 5, the length cut to the output left 2, the record 4, the state update
 #: 8: bit position, count, mode, offset, markers, done)
+#: the scan parse's serial bound, a bound of its design (one walker a
+#: stream) and not of the work, which a parallel parse (engine "bits") is
+#: not held to: so it stands on phase scan's lines, not as ``bound_ms``.
+#: Its longest stream's steps times one step's dependent chain in its
+#: walker, from one bit position to the next (scripts/sass_loop.py --dump:
+#: the funnel shift, the offset form's bit taken out (shift, mask, test),
+#: the two width selects, the add, the window's advance test and its
+#: select: 9 SASS instructions), each at the latency of a dependent
+#: funnel shift or add that one thread reads with clock64 in this run
+#: (``decode._chain_latency``), at the card's highest SM clock
+SCAN_CHAIN_INSTRUCTIONS = 9
 OPS_PER_ELEMENT = {
     "perk_level": 5 + 14 + 18, "ext_breaks": 41, "ext_fold": 17,
     "rank_mask": 2, "gather_big": 2,
@@ -456,12 +475,25 @@ def _compare(name: str, args: tuple, kw: dict, timed: bool) -> dict:
     return out
 
 
-def _scan_steps(outs: tuple) -> int:
-    """The parse steps a scan parse's streams took, counted as its records
-    with output plus its end markers (a zero extension nibble, the one
-    other step without output, is not counted)."""
-    recs, _, markers = outs
-    return int((recs >= 0).sum()) + int(markers.sum())
+def _scan_steps(outs: tuple, longest: bool = False) -> int:
+    """The parse steps a scan parse's streams took (or, with ``longest``,
+    its longest stream), counted as its records with output plus its end
+    markers (a zero extension nibble, the one other step without output,
+    is not counted): in the filled rows a record is where the row
+    rises."""
+    fill, _, markers = outs
+    per = ((fill[:, :1] >= 0).sum(1) + (fill[:, 1:] > fill[:, :-1]).sum(1)
+           + markers)
+    return int(per.max() if longest else per.sum())
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi gives it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return 1e6 * float(smi.stdout.strip().splitlines()[0])
 
 
 def _scan_against_bits(args: tuple, kw: dict) -> dict:
@@ -469,8 +501,7 @@ def _scan_against_bits(args: tuple, kw: dict) -> dict:
     loop (PLAIN_TOO_SLOW): its records, filled and expanded, must give
     the bits engine's (out, out_len, markers) on the same input, bitwise;
     its kernel time beside."""
-    recs, out_len, markers = decode._parse_scan(*args, **kw)
-    fill = decode2._filled_records(recs[:, :, None])
+    fill, out_len, markers = decode._parse_scan_filled(*args, **kw)
     out, _ = pexpand.expand_records(fill, out_len, kw["out_cap"])
     want = decode.decode_batch(*args, out_cap=kw["out_cap"],
                                multi_stream=kw["multi_stream"])
@@ -479,8 +510,8 @@ def _scan_against_bits(args: tuple, kw: dict) -> dict:
         raise AssertionError("scan_parse: the decode differs from engine "
                              "bits")
     return {"max_abs_err": 0, "held_against": "engine bits",
-            "steps": _scan_steps((recs, out_len, markers)),
-            "ms": cuda_ms(lambda: decode._parse_scan(*args, **kw))}
+            "steps": _scan_steps((fill, out_len, markers)),
+            "ms": cuda_ms(lambda: decode._parse_scan_filled(*args, **kw))}
 
 
 def _shape_key(args: tuple, kw: dict) -> str:
@@ -593,6 +624,22 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
         f"{'x'.join(map(str, got[0].shape))} records) equal to plain "
         f"(tolerance 0, bitwise)")
     del got, want
+    # the scan parse's other store form, JAX's step-major records
+    # (decode._parse_scan), on the scan decodes' inputs: bitwise its plain
+    # loop, run on the inputs' CPU copies (the loop's some 45 small calls
+    # a step cost a third of their launches on the card)
+    for path in ("scan", "scan budget", "scan multi"):
+        args, kw = calls[path]["scan_parse"][0]
+        got = decode._parse_scan(*args, **kw)
+        want = decode._parse_scan_plain(*(a.cpu() for a in args), **kw)
+        if not all(torch.equal(g.cpu(), w)
+                   for g, w in zip(got, want, strict=True)):
+            raise AssertionError(f"scan_parse ({path}): the step-major "
+                                 "form differs from plain")
+        log("kernels", f"{path} scan_parse's step-major form (_parse_scan, "
+            f"{'x'.join(map(str, got[0].shape))} records) equal to plain "
+            f"(tolerance 0, bitwise)")
+        del got, want
 
     results = {}
     for path, name in PLAIN_TOO_SLOW:
@@ -645,7 +692,8 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
                   key=lambda e: e["numel"])
         res.update({k: top[k] for k in ("shape", "ms", "plain_ms",
                                         "library_ms", "bound_ms",
-                                        "bound_by")})
+                                        "bound_by")
+                    if k in top})
         for e in res["at"]:
             del e["numel"]
     return results
@@ -816,6 +864,34 @@ def _prefix_equal(out: torch.Tensor, upto: torch.Tensor,
     return torch.equal(torch.where(keep, out, 0), torch.where(keep, x, 0))
 
 
+def scan_step_costs(comp: torch.Tensor, clen: torch.Tensor,
+                    out_cap: int) -> dict:
+    """The scan parse's cost a step on ``comp`` at the default budget: its
+    filled form's kernel time (CUDA events) over the longest stream's
+    steps (records with output plus end markers, as JAX's step records
+    count them), and its walker's clock64 cycles over its own steps, for
+    the stream that walked the most (``top``)."""
+    kw = {"out_cap": out_cap, "max_units": decode.default_max_units(out_cap)}
+    longest = _scan_steps(decode._parse_scan_filled(comp, clen, **kw),
+                          longest=True)
+    ms = cuda_ms(lambda: decode._parse_scan_filled(comp, clen, **kw))
+    stats = decode._scan_walker_stats(comp, clen, **kw).cpu()
+    top = int(stats[:, 1].argmax())
+    cycles, steps = (int(v) for v in stats[top])
+    link = decode._chain_latency(comp.device)
+    chain = SCAN_CHAIN_INSTRUCTIONS * link
+    serial = 1e3 * longest * chain / sm_clock_hz()
+    return {"top": top, "line": (
+        f"{comp.shape[0]} x {comp.shape[1]} bytes: {ms:.4f} ms (CUDA "
+        f"events), the longest stream {longest} steps, "
+        f"{1e6 * ms / longest:.2f} ns a step; its walker {cycles} cycles "
+        f"over {steps} steps, {cycles / steps:.2f} cycles a step "
+        f"(clock64); serial bound {serial:.4f} ms "
+        f"({SCAN_CHAIN_INSTRUCTIONS} dependent instructions x {link:.3f} "
+        f"cycles, the latency read in this run, = {chain:.2f} "
+        f"cycles a step)")}
+
+
 def phase_scan(data: bytes, device: torch.device, native,
                raw_ms: float) -> dict[str, int]:
     """The raw decoder's engine "scan" on the raw payload of phase 5, the
@@ -847,19 +923,19 @@ def phase_scan(data: bytes, device: torch.device, native,
     scan()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    max_units = decode.default_max_units(BLOCK)
-    recs, _, marks = decode._parse_scan(comp, clen, out_cap=BLOCK,
-                                        max_units=max_units)
-    longest = int(((recs >= 0).sum(1) + marks).max())
-    del recs
-    parse_ms = cuda_ms(lambda: decode._parse_scan(
-        comp, clen, out_cap=BLOCK, max_units=max_units))
+    costs = scan_step_costs(comp, clen, BLOCK)
     log("scan", f"scan decode {len(data) / dt / 1e9:.4f} GB/s "
         f"({1e3 * dt:.1f} ms, host clock, synchronised), device "
-        f"{cuda_ms(scan):.4f} ms (CUDA events), its parse {parse_ms:.4f} ms "
-        f"(the longest stream {longest} steps, "
-        f"{1e6 * parse_ms / longest:.1f} ns a step); raw decode, engine "
-        f"bits (phase 5): {raw_ms:.1f} ms, host clock")
+        f"{cuda_ms(scan):.4f} ms (CUDA events); raw decode, engine bits "
+        f"(phase 5): {raw_ms:.1f} ms, host clock")
+    log("scan", "its parse, " + costs["line"])
+    # two walkers on one SM (256 streams on 132 SMs) against one (132
+    # streams), and the longest stream alone
+    top = costs["top"]
+    for label, rows in (("132 streams", slice(0, 132)),
+                        ("the longest stream alone", slice(top, top + 1))):
+        log("scan", f"its parse, {label}: "
+            + scan_step_costs(comp[rows], clen[rows], BLOCK)["line"])
     with trace.stage_times() as times:
         scan()
     if set(times) != set(trace.SCAN_STAGES):
@@ -889,6 +965,11 @@ def phase_scan(data: bytes, device: torch.device, native,
     log("scan", f"decode_block(engine=\"scan\") of the {len(stream)}-byte "
         f"stream at out_cap {bitpar.MAX_OUT_CAP}: {len(piece)} bytes exact, "
         f"its end marker read")
+    wide = torch.from_numpy(np.frombuffer(stream, np.uint8).copy()).to(
+        device)[None]
+    wlen = torch.tensor([len(stream)], dtype=torch.int32, device=device)
+    log("scan", "its parse: "
+        + scan_step_costs(wide, wlen, bitpar.MAX_OUT_CAP)["line"])
 
     pair = short_pair(data)
     chain = b"".join(map(native_compress, pair))

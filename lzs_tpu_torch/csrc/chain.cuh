@@ -78,6 +78,7 @@
 // does not depend on the tiling.
 #pragma once
 
+#include "async.cuh"
 #include "scan.cuh"
 
 namespace lzs {
@@ -88,26 +89,6 @@ constexpr unsigned kAggregate = 1;
 constexpr unsigned kPrefix = 2;
 constexpr unsigned kMaxTag = (1u << 30) - 1;
 constexpr unsigned kFull = 0xffffffffu;
-
-// A 16-byte copy from device memory to shared memory that does not wait.
-__device__ __forceinline__ void cp_async16(int4* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// A 4-byte copy from device memory to shared memory that does not wait.
-__device__ __forceinline__ void cp_async4(int* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Element of register r of this thread within its tile (striped).
 template <int kRun>

@@ -33,6 +33,7 @@
 // entered ones).
 //
 // All positions are int32 (chains reach N + the largest step).
+#include "async.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -70,58 +71,17 @@ walk_tables_kernel(const int* __restrict__ step, int* __restrict__ tabs,
   if (live) exits[at] = a;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
-          smem_u32(bar))
-      : "memory");
-}
-
-// Arrives on `bar` once every cp.async this thread issued so far has
-// landed (the arrival is one of the barrier's expected count).
-__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
+using lzs::mbar_arrive;
+using lzs::mbar_arrive_copies;
+using lzs::mbar_init;
+using lzs::mbar_wait;
 
 template <int kBytes>
 __device__ __forceinline__ void cp_async(int* smem, const int* gmem) {
   if (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_u32(smem)),
-                 "l"(gmem)
-                 : "memory");
+    lzs::cp_async16(smem, gmem);
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_u32(smem)),
-                 "l"(gmem)
-                 : "memory");
+    lzs::cp_async4(smem, gmem);
   }
 }
 

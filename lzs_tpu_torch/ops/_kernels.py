@@ -59,7 +59,8 @@ _SIGNATURES = {
                       _P, _P, _P],
     "lzs_expand_rows": [_P, _P, _I, _I, _P, _I, _P],
     "lzs_parse_lanes": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
-    "lzs_scan_parse": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "lzs_scan_parse": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    "lzs_chain_latency": [_P, _I, _I],
 }
 
 
@@ -240,7 +241,7 @@ EXPAND = Kernel("expand", "lzs_expand_rows", "lzs_tpu_torch/csrc/expand.cu",
 PARSE = Kernel("parse", "lzs_parse_lanes", "lzs_tpu_torch/csrc/parse.cu",
                "lzs_tpu/ops/decode2.py:132")
 # replaces a lax.scan too: the raw decoder's bit-serial parse (engine
-# "scan")
+# "scan"), and in its filled form the record fill after it
 SCAN_PARSE = Kernel("scan_parse", "lzs_scan_parse",
                     "lzs_tpu_torch/csrc/scan_parse.cu",
                     "lzs_tpu/ops/decode.py:43")

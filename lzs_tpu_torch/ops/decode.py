@@ -11,11 +11,14 @@ Port of ``lzs_tpu.ops.decode``'s entry points and both of its engines:
           one unit (a literal, a copy head, an extension nibble or an end
           marker) per step, at most ``max_units`` steps per stream. Its
           records (opos << 13 | is_copy << 11 | payload, -1 where a step
-          has no output) go through the record fill (``decode2.
-          _filled_records``, K8 on the card) and the expansion
-          (``pexpand.expand_records``, K17), as in JAX. On a CUDA tensor
-          the parse launches ``csrc/scan_parse.cu``; on a CPU tensor it
-          runs ``_parse_scan_plain``, a torch loop over the steps.
+          has no output) go through the record fill (JAX's
+          ``decode2._filled_records``) and the expansion
+          (``pexpand.expand_records``, K17), as in JAX. The decode takes
+          the parse in its filled form (``_parse_scan_filled``): on a
+          CUDA tensor one launch of ``csrc/scan_parse.cu`` writes the
+          filled rows, so the path is 2 launches; on a CPU tensor it runs
+          ``_parse_scan_plain``, a torch loop over the steps, then the
+          fill's layout and plain cummax.
 
 Engine "bits" takes any ``out_cap`` up to ``bitpar.MAX_WIDE_OUT_CAP``:
 past ``MAX_OUT_CAP`` = 2^18 it expands its output in windows of 2^18
@@ -39,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import spec, trace
-from . import _kernels, bitpar, decode2, pexpand
+from . import _kernels, bitpar, decode2, pexpand, pext
 from .pexpand import MAX_OUT_CAP
 
 _I32 = torch.int32
@@ -145,6 +148,37 @@ def _check_scan(comp: torch.Tensor, inbytes: torch.Tensor) -> int:
     return b
 
 
+def _parse_scan_filled_plain(comp: torch.Tensor, inbytes: torch.Tensor, *,
+                             out_cap: int, max_units: int,
+                             multi_stream: bool = False):
+    """Plain-torch ``_parse_scan_filled`` (any device): ``_parse_scan_plain``
+    composed with ``decode2._filled_records`` (its layout, then the plain
+    cummax)."""
+    recs, out_len, markers = _parse_scan_plain(
+        comp, inbytes, out_cap=out_cap, max_units=max_units,
+        multi_stream=multi_stream)
+    fill = pext.cummax_rows_plain(decode2._flat_records(recs[:, :, None]))
+    return fill, out_len, markers
+
+
+def _launch_scan(comp: torch.Tensor, inbytes: torch.Tensor, width: int, *,
+                 out_cap: int, max_units: int, multi_stream: bool,
+                 stats: torch.Tensor | None = None):
+    """One launch of csrc/scan_parse.cu: width 0 writes the step-major
+    records (rows of max_units), else the filled rows of ``width``."""
+    b = _check_scan(comp, inbytes)
+    out = torch.empty((b, width or max_units), dtype=_I32, device=comp.device)
+    out_len = torch.empty(b, dtype=_I32, device=comp.device)
+    markers = torch.empty(b, dtype=_I32, device=comp.device)
+    if b:
+        _kernels.SCAN_PARSE.launch(
+            comp.device, comp.data_ptr(), inbytes.data_ptr(), b,
+            comp.shape[1], max_units, out_cap, int(multi_stream),
+            out.data_ptr(), width, out_len.data_ptr(), markers.data_ptr(),
+            0 if stats is None else stats.data_ptr())
+    return out, out_len, markers
+
+
 def _parse_scan(comp: torch.Tensor, inbytes: torch.Tensor, *, out_cap: int,
                 max_units: int, multi_stream: bool = False):
     """Bit-serial parse of a batch of raw LZS streams.
@@ -160,28 +194,75 @@ def _parse_scan(comp: torch.Tensor, inbytes: torch.Tensor, *, out_cap: int,
         return _parse_scan_plain(comp, inbytes, out_cap=out_cap,
                                  max_units=max_units,
                                  multi_stream=multi_stream)
-    b = _check_scan(comp, inbytes)
-    recs = torch.empty((b, max_units), dtype=_I32, device=comp.device)
-    out_len = torch.empty(b, dtype=_I32, device=comp.device)
-    markers = torch.empty(b, dtype=_I32, device=comp.device)
-    if b:
-        _kernels.SCAN_PARSE.launch(
-            comp.device, comp.data_ptr(), inbytes.data_ptr(), b,
-            comp.shape[1], max_units, out_cap, int(multi_stream),
-            recs.data_ptr(), out_len.data_ptr(), markers.data_ptr())
-    return recs, out_len, markers
+    return _launch_scan(comp, inbytes, 0, out_cap=out_cap,
+                        max_units=max_units, multi_stream=multi_stream)
+
+
+def _parse_scan_filled(comp: torch.Tensor, inbytes: torch.Tensor, *,
+                       out_cap: int, max_units: int,
+                       multi_stream: bool = False):
+    """The parse in the form the expansion takes: (fill int32[B,
+    decode2._flat_width(max_units)], out_len int32[B], end_markers
+    int32[B]).
+
+    fill is ``decode2._filled_records(recs[:, :, None])`` of
+    ``_parse_scan``'s records: each step's record or the latest record
+    before it, -1 before the first one, the last one repeated through the
+    rest of the row. On a CUDA tensor one launch of csrc/scan_parse.cu
+    writes it all.
+    """
+    if _kernels.on_cpu(comp, inbytes):
+        return _parse_scan_filled_plain(comp, inbytes, out_cap=out_cap,
+                                        max_units=max_units,
+                                        multi_stream=multi_stream)
+    return _launch_scan(comp, inbytes, decode2._flat_width(max_units),
+                        out_cap=out_cap, max_units=max_units,
+                        multi_stream=multi_stream)
+
+
+def _scan_walker_stats(comp: torch.Tensor, inbytes: torch.Tensor, *,
+                       out_cap: int, max_units: int,
+                       multi_stream: bool = False) -> torch.Tensor:
+    """A measurement of ``_parse_scan_filled`` on the card: int64[B, 2],
+    per stream the walker's clock64 cycles from its first step to its last
+    and its step count (CUDA tensors only)."""
+    stats = torch.zeros((comp.shape[0], 2), dtype=torch.int64,
+                        device=comp.device)
+    _launch_scan(comp, inbytes, decode2._flat_width(max_units),
+                 out_cap=out_cap, max_units=max_units,
+                 multi_stream=multi_stream, stats=stats)
+    return stats
+
+
+#: the dependent instructions that lzs_chain_latency times
+#: (csrc/scan_parse.cu kProbeOps)
+_PROBE_OPS = 2 * 16 * 64
+
+
+def _chain_latency(device: torch.device) -> float:
+    """A measurement on the card: the clock64 cycles of one link of a
+    chain of dependent funnel shifts and adds, which one thread alone
+    times (csrc/scan_parse.cu lzs_chain_latency). Not a kernel of any
+    path: it counts no launch."""
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    lib = _kernels.LIBRARY.get()
+    err = lib.lzs_chain_latency(
+        out.data_ptr(), 12345, 7, device.index,
+        torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        msg = lib.lzs_error_string(err).decode()
+        raise _kernels.KernelError(f"lzs_chain_latency failed: {msg} ({err})")
+    return int(out[0]) / _PROBE_OPS
 
 
 def _decode_scan(comp: torch.Tensor, inbytes: torch.Tensor, *, out_cap: int,
                  max_units: int, multi_stream: bool):
-    """Engine "scan": the parse, the record fill (K8), the expansion
+    """Engine "scan": the parse in its filled form, then the expansion
     (K17); JAX's ``_decode_batch`` tail."""
     with trace.stage("scan_parse"):
-        recs, out_len, markers = _parse_scan(
+        fill, out_len, markers = _parse_scan_filled(
             comp.contiguous(), inbytes.to(_I32).contiguous(),
             out_cap=out_cap, max_units=max_units, multi_stream=multi_stream)
-    with trace.stage("scan_fill"):
-        fill = decode2._filled_records(recs[:, :, None])
     with trace.stage("scan_expand"):
         out, _ = pexpand.expand_records(fill, out_len, out_cap)
     return out, out_len, markers

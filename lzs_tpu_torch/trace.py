@@ -32,9 +32,9 @@ STAGES = ("candidates", "extend", "units", "pack", "sync",
 #: fields, the head walk, slot records, record fill, expansion
 RAW_STAGES = ("heads", "walk", "records", "raw_fill", "raw_expand")
 
-#: stage names of the raw decoder's engine "scan": the bit-serial parse,
-#: record fill, expansion
-SCAN_STAGES = ("scan_parse", "scan_fill", "scan_expand")
+#: stage names of the raw decoder's engine "scan": the bit-serial parse
+#: (which writes the filled records), expansion
+SCAN_STAGES = ("scan_parse", "scan_expand")
 
 #: stage of the streaming compressor: one slice's match search on its
 #: device, from the host copy in to the three tables back on the host

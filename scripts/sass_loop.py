@@ -8,6 +8,8 @@ opcode. The lane parse's loop is one word step (4 substeps).
 
     python3 scripts/sass_loop.py build/lzs_tpu_torch/liblzs_tpu_torch_*.so
 
+With --dump DIR, each matched function's whole SASS goes to a file there.
+
 Needs the CUDA toolkit's cuobjdump (PATH, CUDA_HOME or /usr/local/cuda).
 """
 
@@ -61,6 +63,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("files", nargs="+")
     ap.add_argument("--kernel", default="parse_lanes_kernel")
+    ap.add_argument("--dump", help="directory for each function's SASS")
     args = ap.parse_args()
     for path in args.files:
         sass = subprocess.run([cuobjdump(), "-sass", path], check=True,
@@ -68,6 +71,12 @@ def main() -> None:
         for name, code in functions(sass):
             if args.kernel not in name:
                 continue
+            if args.dump:
+                os.makedirs(args.dump, exist_ok=True)
+                out = os.path.join(args.dump, re.sub(r"\W", "_", name)[:120]
+                                   + ".sass")
+                with open(out, "w") as f:
+                    f.writelines(f"/*{a:04x}*/ {t};\n" for a, t in code)
             body = main_loop(code)
             ops = collections.Counter(opcode(t) for t in body)
             print(f"{os.path.basename(path)} {name}: {len(code)} "

@@ -28,8 +28,9 @@ at lane, warp and tile starts; the bit pack over clusters of 1 to 8 CTAs
 walk's entries: 1 to 300 rows of 1 to 6272 tiles,
 skips past a ring slot and a ring, chains past the row; the mask rank
 (K6) at batch 33 on ragged and misaligned rows and bytes other than 0/1;
-the raw decoder's scan parse at batch 33 on encoded, truncated,
-concatenated and noise streams, with a budget that cuts); the codec's
+the raw decoder's scan parse, both stores, at batch 33 on encoded,
+truncated, concatenated and noise streams, with a budget that cuts, and
+on the 2^18 stream in rows wider than its shared-memory ring); the codec's
 bytes (also a 256-block container), the probe's run lengths and the raw
 decoder's output on the card are compared with the CPU's. The streaming
 codec's match search runs at batch 1: both backends at every pool of
@@ -788,43 +789,97 @@ def _scan_streams(dev, shift):
     return flat[shift:].view(len(streams), c), n
 
 
+def _scan_stores_equal(comp, n, **kw):
+    """Both store forms of the scan parse kernel, one launch each, bitwise
+    equal to their plain versions on the tensors' CPU copies (where a
+    step's some 45 small torch calls cost a third of their launches on the
+    card): JAX's step-major records (returned, on the card) and the
+    decode's filled rows."""
+    before = _kernels.SCAN_PARSE.launches
+    got = decode._parse_scan(comp, n, **kw)
+    filled = decode._parse_scan_filled(comp, n, **kw)
+    assert _kernels.SCAN_PARSE.launches == before + 2
+    want = decode._parse_scan_plain(comp.cpu(), n.cpu(), **kw)
+    _equal([t.cpu() for t in got], want)
+    _equal([t.cpu() for t in filled], [
+        pext.cummax_rows_plain(decode2._flat_records(want[0][:, :, None])),
+        *want[1:]])
+    return got
+
+
 @pytest.mark.parametrize("shift", [0, 1])
 @pytest.mark.parametrize("max_units", [None, 300])
 @pytest.mark.parametrize("multi", [False, True])
 def test_scan_parse_kernel(cuda, multi, max_units, shift):
     """The scan parse (csrc/scan_parse.cu) at batch 33 against its plain
     loop on the same bytes: encoded blocks, truncations, two streams in a
-    row, noise; the default budget and one that cuts; one launch. The
-    plain loop runs on the tensors' CPU copies, where a step's some 45
-    small torch calls cost a third of their launches on the card."""
+    row, noise; the default budget and one that cuts; both stores (JAX's
+    step records and the decode's filled rows), one launch each."""
     comp, n = _scan_streams(cuda, shift)
     assert len(n) == 33 and (comp.shape[1] % 4 == 3) == bool(shift)
     units = decode.default_max_units(8192) if max_units is None \
         else max_units
-    kw = {"out_cap": 8192, "max_units": units, "multi_stream": multi}
-    before = _kernels.SCAN_PARSE.launches
-    got = decode._parse_scan(comp, n, **kw)
-    assert _kernels.SCAN_PARSE.launches == before + 1
-    _equal([t.cpu() for t in got],
-           decode._parse_scan_plain(comp.cpu(), n.cpu(), **kw))
+    got = _scan_stores_equal(comp, n, out_cap=8192, max_units=units,
+                             multi_stream=multi)
     assert got[0].shape == (33, units)
     if max_units is None:
         assert int(got[2][24]) == (2 if multi else 1)
 
 
+def test_scan_measurements(cuda):
+    """The scan parse's measurement helpers: the walker's clock64 cycles
+    and steps per stream (at least the stream's steps with output, and a
+    cycle or more a step), and the latency of one dependent link."""
+    comp, n = _scan_streams(cuda, 0)
+    kw = {"out_cap": 8192, "max_units": decode.default_max_units(8192)}
+    stats = decode._scan_walker_stats(comp, n, **kw).cpu()
+    recs, _, marks = decode._parse_scan(comp, n, **kw)
+    steps = ((recs >= 0).sum(1) + marks).cpu()
+    assert stats.shape == (33, 2)
+    assert bool((stats[:, 1] >= steps).all())
+    assert bool((stats[:, 0] >= stats[:, 1]).all())
+    assert 1.0 <= decode._chain_latency(cuda) <= 64.0
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+def test_scan_parse_kernel_wide_rows(cuda, shift):
+    """Rows wider than the kernel's 32 KiB shared-memory ring: the
+    C-encoded 2^18 stream of the bench corpus (some 100 KB), once as it is
+    and once with its input length 5000 bytes past the row (the bytes past
+    C read as zero), in rows padded 3 bytes past the stream and (shift) 1
+    byte past a 16-byte boundary; both stores against their plain loop."""
+    from bench import make_corpus
+    from lzs_tpu_torch.utils import native
+
+    stream = native.compress(make_corpus(1 << 18)[:(1 << 18) - 1024])
+    c = len(stream) + 3
+    assert c > 32768
+    buf = np.zeros((2, c), np.uint8)
+    buf[:, :len(stream)] = np.frombuffer(stream, np.uint8)
+    flat = torch.zeros(buf.size + shift, dtype=torch.uint8, device=cuda)
+    flat[shift:] = torch.from_numpy(buf.reshape(-1)).to(cuda)
+    comp = flat[shift:].view(2, c)
+    n = torch.tensor([len(stream), c + 5000], dtype=torch.int32,
+                     device=cuda)
+    got = _scan_stores_equal(comp, n, out_cap=1 << 18,
+                             max_units=decode.default_max_units(1 << 18),
+                             multi_stream=False)
+    assert got[1].tolist() == [(1 << 18) - 1024] * 2
+    assert got[2].tolist() == [1, 1]
+
+
 def test_scan_decode_on_card_equals_cpu(cuda):
     """decode_batch(engine="scan") on the card: the cpu's bytes, lengths
     and markers, engine "bits"'s too, through one launch each of the
-    parse, the fill (K8) and the expansion (K17)."""
+    parse (its filled form) and the expansion (K17), and nothing else."""
     comp, n = _scan_streams(cuda, 0)
     for multi in (False, True):
         _kernels.reset_launches()
         got = decode.decode_batch(comp, n, out_cap=8192, multi_stream=multi,
                                   engine="scan")
         counts = _kernels.launch_counts()
-        assert [counts[k] for k in ("scan_parse", "rowscan_cummax",
-                                    "expand")] == [1, 1, 1]
-        assert sum(counts.values()) == 3
+        assert [counts[k] for k in ("scan_parse", "expand")] == [1, 1]
+        assert sum(counts.values()) == 2
         want = decode.decode_batch(comp.cpu(), n.cpu(), out_cap=8192,
                                    multi_stream=multi, engine="scan")
         _equal([t.cpu() for t in got], want)
@@ -1117,6 +1172,11 @@ def test_wrappers_reject_bad_operands(cuda):
         decode._parse_scan(comp[:, ::2], n, out_cap=64, max_units=8)
     with pytest.raises(ValueError):
         decode._parse_scan(comp, n.cpu(), out_cap=64, max_units=8)
+    with pytest.raises(TypeError):
+        decode._parse_scan_filled(comp.to(torch.int32), n, out_cap=64,
+                                  max_units=8)
+    with pytest.raises(ValueError):
+        decode._parse_scan_filled(comp[:, ::2], n, out_cap=64, max_units=8)
     with pytest.raises(TypeError):
         decode2._parse_flat(comp.to(torch.int32), v, v, 160)
     with pytest.raises(ValueError):

@@ -1,9 +1,11 @@
 """lzs_tpu_torch: the raw decoder's engine "scan" against JAX's.
 
 The port's bit-serial parse on CPU tensors (``decode._parse_scan_plain``;
-a CUDA tensor launches ``csrc/scan_parse.cu``, tests/test_torch_gpu.py)
-and its decode (``decode_batch(engine="scan")``: the parse, the record
-fill and the expansion, each its plain version here) against the JAX
+a CUDA tensor launches ``csrc/scan_parse.cu``, tests/test_torch_gpu.py),
+its filled form (``decode._parse_scan_filled``, the records as JAX's
+``_decode_batch`` fills them, bitwise) and its decode
+(``decode_batch(engine="scan")``: the filled parse and the expansion,
+each its plain version here, and no ``cummax_rows``) against the JAX
 package's ``engine="scan"`` (its ``lax.scan`` parse; the fill and the
 expansion as Pallas kernels in interpret mode), at tolerance 0 in (out,
 out_len, end markers) and in the step records (JAX's ``_parse_scan``
@@ -33,7 +35,8 @@ import jax.numpy as jnp
 from lzs_tpu import reference as ref
 from lzs_tpu import spec
 from lzs_tpu.ops import decode as jdecode
-from lzs_tpu_torch.ops import decode
+from lzs_tpu.ops import decode2 as jdecode2
+from lzs_tpu_torch.ops import decode, pext
 
 from test_torch_rawdecode import _assert_equal, _batch, fuzz  # noqa: F401
 
@@ -63,6 +66,20 @@ def _jax_records(buf, lens, *, out_cap, max_units=None, multi_stream=False):
     rec = np.where(length > 0, (opos << 13)
                    | ((kind == 2).astype(np.int32) << 11) | pay, -1)
     return [rec.astype(np.int32), out_len, markers]
+
+
+def _jax_filled(buf, lens, **kw):
+    """JAX's record fill of its step records, as its _decode_batch makes
+    it (_filled_records of rec[:, :, None]), out_len and end markers."""
+    rec, out_len, markers = _jax_records(buf, lens, **kw)
+    return [np.asarray(jdecode2._filled_records(jnp.asarray(rec)[:, :, None])),
+            out_len, markers]
+
+
+def _port_filled(buf, lens, *, out_cap, max_units=None, multi_stream=False):
+    return [t.numpy() for t in decode._parse_scan_filled(
+        torch.from_numpy(buf), torch.from_numpy(lens), out_cap=out_cap,
+        max_units=_budget(out_cap, max_units), multi_stream=multi_stream)]
 
 
 def _port_records(buf, lens, *, out_cap, max_units=None, multi_stream=False):
@@ -227,3 +244,64 @@ def test_parse_scan_cpu_path_is_the_plain_version(fuzz):
                        multi_stream=True)
     with pytest.raises(ValueError, match="max_units"):
         decode.decode_batch(t, n, out_cap=500, max_units=-1, engine="scan")
+
+
+def _truncations():
+    stream = ref.lzs_compress(b"some data to compress some data" * 3
+                              + bytes(range(40)))
+    return _batch([stream[:cut] for cut in range(len(stream) + 1)])
+
+
+def _unaligned(buf):
+    """The rows widened with zeros to C % 4 == 3."""
+    c = buf.shape[1] + (3 - buf.shape[1] % 4) % 4
+    return np.pad(buf, ((0, 0), (0, c - buf.shape[1])))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("case", ["fuzz", "truncations", "budget",
+                                  "unaligned", "narrow"])
+def test_filled_matches_jax(fuzz, case, multi):
+    """The decode's form of the parse (_parse_scan_filled: the records
+    filled as JAX's _decode_batch fills them, -1 before the first, the last
+    one through the pad of _flat_width) equals JAX's rows bitwise, with
+    out_len and the end markers: the fuzz streams, every truncation of one
+    stream, a budget of 300 steps that cuts, rows of C % 4 == 3, rows cut
+    to 77 bytes at out_cap 500 and 600 steps."""
+    buf, lens, _ = fuzz
+    kw = {"out_cap": 2048, "multi_stream": multi}
+    if case == "truncations":
+        buf, lens = _truncations()
+        kw["out_cap"] = 4096
+    elif case == "budget":
+        kw["max_units"] = 300
+    elif case == "unaligned":
+        buf = _unaligned(buf)
+        assert buf.shape[1] % 4 == 3
+    elif case == "narrow":
+        buf = np.ascontiguousarray(buf[:, :77])
+        kw.update(out_cap=500, max_units=600)
+    assert len(lens) >= 32
+    got = _port_filled(buf, lens, **kw)
+    _assert_equal(got, _jax_filled(buf, lens, **kw))
+    width = max((_budget(kw["out_cap"], kw.get("max_units")) + 127) & ~127,
+                768)
+    assert got[0].shape == (len(lens), width)
+    if case == "budget":
+        assert (got[1] < _port(buf, lens, "bits", **kw)[1]).sum() >= 3
+
+
+def test_scan_decode_runs_no_record_fill(fuzz, monkeypatch):
+    """decode_batch(engine="scan") takes the parse's filled rows as they
+    are: no cummax_rows (K8 on the card) runs on its path."""
+    buf, lens, datas = fuzz
+
+    def no_fill(v):
+        raise AssertionError("cummax_rows ran on the scan decode's path")
+
+    monkeypatch.setattr(pext, "cummax_rows", no_fill)
+    got = _port(buf, lens, out_cap=2048)
+    for i, d in enumerate(datas):
+        assert got[0][i, :got[1][i]].tobytes() == d
+    monkeypatch.undo()
+    _assert_equal(got, _port(buf, lens, "bits", out_cap=2048))
