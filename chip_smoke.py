@@ -23,7 +23,8 @@ non-zero):
               decode_block, and of four scan-engine decodes like phase
               6's, and the first call of each shape of the stream's runs
               (phase 7) and of what phases 8-10 add (the coders' repeat
-              inputs, the CLI's two raw decodes on the card, one
+              inputs, the CLI's two raw decodes on the card and the
+              first and last BIG_KEEP of the big raw file's, one
               DistributedCodec compress and decompress), is recorded as
               it runs; each recorded
               call is then held against the kernel's plain torch version
@@ -102,12 +103,16 @@ non-zero):
   9. cli      lzs_tpu_torch.cli.main in this process on files under
               build/, counters reset just before: raw blocks of the corpus
               (equal to the C encoder block by block, read back by the C
-              decoder), decompress of the first 4 blocks' raw file (out_cap
-              2^18) and of the whole raw file (out_cap 2^24, in windows of
-              2^18), both on the card, container and lazy container
-              round trips, --stream of the first 1 MiB (the C encoder's
-              one-shot bytes); each call's host-clock MB/s and route, and
-              the whole raw file's decode stages;
+              decoder), decompress of the first 4 blocks' raw file and of
+              the whole raw file (one window of the input, the output
+              expanded in windows of 2^18), and of the big raw file (the
+              whole raw file repeated past BIG_MIB MiB: windows of the
+              input, bitpar._WIN bytes each), all on the card, container
+              and lazy container round trips, --stream of the first 1
+              MiB (the C encoder's one-shot bytes); each call's
+              host-clock MB/s and route, the whole and the big raw
+              files' decode stages, and the big file's windows and peak
+              device memory;
  10. dist     DistributedCodec(block=32768) on an NCCL world of one
               (a FileStore under build/), counters reset just before: its
               payload and sync arrays equal BlockCodec's, its decompress
@@ -194,10 +199,19 @@ CODER_SPAN = 1 << 15
 REPEATS = (2100, 3000)
 FAR_PROFILES = ("reach", "flat", "bounded")
 #: the CLI phase's raw file of the corpus's first blocks: its stream
-#: (some 53 KB) takes the device route at out_cap 2^18
+#: (some 53 KB) decodes in one window of the input, its output in one of
+#: 2^18
 CLI_BLOCKS = 4
 #: a scan-engine step budget that cuts every stream of the raw payload
 CUT_UNITS = 1000
+#: the CLI phase's big raw file passes this many MiB of input (the whole
+#: raw file repeated), so that it decodes over several input windows
+BIG_MIB = 40
+#: the big raw file's kernel calls that phase 3 holds to their plain
+#: versions: the first and the last BIG_KEEP of each kernel's (the
+#: windows of the input repeat their shapes; the plain walk's entries at
+#: a window's 524,544 tiles take some 20 s)
+BIG_KEEP = 3
 #: the stream phase's depth cut (1 MiB of the corpus) and feed size
 STREAM_SIZE = 1 << 20
 STREAM_FEED = 1 << 16
@@ -592,8 +606,16 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
                 get_profile(name, device=str(device)).compress(
                     repeat_block(period))
     with recorded_calls(first_of_shape=True) as calls["cli"]:
-        for chain in cli_raw_chains(data, native_compress):
+        chains = cli_raw_chains(data, native_compress)
+        for chain in chains:
             cli._decompress_raw_device(chain, device)
+    with recorded_calls(first_of_shape=True) as big:
+        cli._decompress_raw_device(big_raw(chains[1])[0], device)
+    for name, recorded in big.items():
+        keep = (recorded if len(recorded) <= 2 * BIG_KEEP
+                else recorded[:BIG_KEEP] + recorded[-BIG_KEEP:])
+        calls["cli"][name].extend(keep)
+    del big, chains
     with (world_of_one(device),
           recorded_calls(first_of_shape=True) as calls["dist"]):
         dist_drive(data, device)
@@ -1219,14 +1241,39 @@ def cli_raw_chains(data: bytes, native_compress) -> tuple[bytes, bytes]:
     return b"".join(blocks[:CLI_BLOCKS]), b"".join(blocks)
 
 
+def big_raw(raw: bytes) -> tuple[bytes, int]:
+    """The big raw file: ``raw`` repeated past BIG_MIB MiB (a chain of
+    streams is a raw file), and its repeats."""
+    reps = (BIG_MIB << 20) // len(raw) + 1
+    return raw * reps, reps
+
+
+def windows_taken(fn):
+    """fn()'s result and the input windows it took (calls of
+    ``bitpar._heads``, one a window)."""
+    calls = [0]
+    heads = bitpar._heads
+
+    def count(*args, **kw):
+        calls[0] += 1
+        return heads(*args, **kw)
+
+    bitpar._heads = count
+    try:
+        return fn(), calls[0]
+    finally:
+        bitpar._heads = heads
+
+
 def cli_drive(data: bytes, work: pathlib.Path, device: torch.device,
               native) -> dict:
     """The CLI's calls on files under ``work`` (cli.main in this
     process, ``--device`` the card): (a) raw blocks of the corpus, (b)
     decompress of its first CLI_BLOCKS blocks' raw file, (c) of the whole
-    raw file, (d)
-    container and lazy container round trips, (e) --stream of the first
-    STREAM_SIZE bytes. Returns {call: (seconds, stderr)}."""
+    raw file, (d) of the big raw file, (e) container and lazy container
+    round trips, (f) --stream of the first STREAM_SIZE bytes. Returns
+    ({call: (seconds, stderr)}, the big file's repeats, input windows and
+    peak device memory less what was allocated before it)."""
     native_compress, _ = native
     src = work / "corpus.bin"
     src.write_bytes(data)
@@ -1252,6 +1299,17 @@ def cli_drive(data: bytes, work: pathlib.Path, device: torch.device,
         str(work / "head.out"))
     run("decompress", "decompress", "-v", str(work / "raw.lzs"),
         str(work / "raw.out"))
+    chain, reps = big_raw((work / "raw.lzs").read_bytes())
+    (work / "big.lzs").write_bytes(chain)
+    del chain
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _, windows = windows_taken(lambda: run(
+        "decompress big", "decompress", "-v", str(work / "big.lzs"),
+        str(work / "big.out")))
+    big = {"reps": reps, "windows": windows,
+           "peak": torch.cuda.max_memory_allocated(device) - before}
     for name, flags in (("container", ()), ("container lazy", ("--lazy",))):
         run(f"compress {name}", "compress", "--container", *flags, "-v",
             str(src), str(work / f"{name}.lzst"))
@@ -1259,7 +1317,7 @@ def cli_drive(data: bytes, work: pathlib.Path, device: torch.device,
             str(work / f"{name}.lzst"), str(work / f"{name}.out"))
     run("compress stream", "compress", "--stream", "-v",
         str(work / "slice.bin"), str(work / "slice.lzs"))
-    return calls
+    return calls, big
 
 
 def _route(stderr: str) -> str:
@@ -1276,7 +1334,7 @@ def phase_cli(data: bytes, device: torch.device, native) -> dict[str, int]:
         work = pathlib.Path(tmp)
         torch.cuda.synchronize()
         _kernels.reset_launches()
-        calls = cli_drive(data, work, device, native)
+        calls, big = cli_drive(data, work, device, native)
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
         raw = (work / "raw.lzs").read_bytes()
@@ -1290,6 +1348,7 @@ def phase_cli(data: bytes, device: torch.device, native) -> dict[str, int]:
                 ("decompress head", "head.out", data[:CLI_BLOCKS * BLOCK],
                  "device"),
                 ("decompress", "raw.out", data, "device"),
+                ("decompress big", "big.out", data * big["reps"], "device"),
                 ("decompress container", "container.out", data,
                  "device, container"),
                 ("decompress container lazy", "container lazy.out", data,
@@ -1305,6 +1364,7 @@ def phase_cli(data: bytes, device: torch.device, native) -> dict[str, int]:
             raise AssertionError("cli --stream differs from the C encoder's "
                                  "one-shot bytes")
         sizes = {"compress": len(data), "decompress head": CLI_BLOCKS * BLOCK,
+                 "decompress big": big["reps"] * len(data),
                  "compress stream": STREAM_SIZE}
         for name, (dt, err) in calls.items():
             size = sizes.get(name, len(data))
@@ -1318,11 +1378,25 @@ def phase_cli(data: bytes, device: torch.device, native) -> dict[str, int]:
         log("cli", f"the whole raw file's decode ({len(raw)} bytes in, "
             f"windows of {bitpar.MAX_OUT_CAP}), stages ms: " + ", ".join(
                 f"{s} {1e3 * times[s]:.1f}" for s in trace.RAW_STAGES))
+        chain = (work / "big.lzs").read_bytes()
+        with trace.stage_times() as times:
+            cli._decompress_raw_device(chain, device)
+        dt = calls["decompress big"][0]
+        log("cli", f"the big raw file ({len(chain)} bytes in, the whole raw "
+            f"file x{big['reps']}, {big['reps'] * len(data)} out): "
+            f"{big['windows']} input windows of {bitpar._WIN} bytes, peak "
+            f"device memory {big['peak'] / 2**30:.3f} GiB over the input's, "
+            f"{big['reps'] * len(data) / dt / 1e6:.4f} MB/s of output "
+            f"({1e3 * dt:.1f} ms, host clock); stages ms: " + ", ".join(
+                f"{s} {1e3 * times[s]:.1f}" for s in trace.RAW_STAGES))
+        if big["windows"] < 2:
+            raise AssertionError("cli decompress big: one input window")
     log("cli", f"raw blocks == the C encoder, read back by the C decoder; "
-        f"the first {CLI_BLOCKS} blocks' raw file and the whole raw file "
-        f"(past 2^18 output bytes, in windows) decoded on the card; "
-        f"container and lazy container round trips exact; --stream == the "
-        f"C encoder's one-shot bytes")
+        f"the first {CLI_BLOCKS} blocks' raw file, the whole raw file (past "
+        f"2^18 output bytes, in windows) and the big raw file (past "
+        f"{BIG_MIB} MiB of input, in windows of the input) decoded on the "
+        f"card; container and lazy container round trips exact; --stream "
+        f"== the C encoder's one-shot bytes")
     return counts
 
 

@@ -35,6 +35,15 @@ each window's records are rebased to the window, behind 2048 bytes of
 the output before it as literal records, since a copy reaches at most
 2047 bytes back. The windows run one after another on the same kernels
 (K8, K17).
+
+An input wider than ``_WIN`` bytes (padded), or an out_cap past 2^18,
+decodes in windows of the input (``_window_loop``), so any input width
+decodes: each window runs steps 1-4 on a span of each row from the row's
+entry head, and keeps the heads that the span decides (``_final``); the
+first head it cannot decide is the next window's entry. Each span's sums
+stay in int32 (``MAX_WIDE_INPUT``). ``decode_to_host`` runs the same
+loop with no output capacity and appends each window's output on the
+host (the CLI's raw decode).
 """
 
 from __future__ import annotations
@@ -56,12 +65,25 @@ _ROW = MAX_OUT_CAP
 #: the output bytes before a window that it carries as literal records: a
 #: copy reaches at most 2047 bytes back
 _HIST = 2048
-#: the widest input of a decode past ``_ROW``: a row's sum of token
-#: lengths (at most 15 output bytes per 4 input bits, and 8 per head of 9
-#: bits or more) then stays below 2^31
-MAX_WIDE_INPUT = 1 << 25
+#: the widest span of input bytes that one pass of the per-bit parse
+#: reads: its token lengths (at most 15 output bytes per 4 input bits,
+#: and 8 per head of 9 bits or more: 30 bytes an input byte) then sum
+#: below 2^31
+MAX_WIDE_INPUT = 1 << 26
 #: the widest out_cap of engine "bits"
 MAX_WIDE_OUT_CAP = 1 << 30
+#: new input bytes of one input window, shared by the rows that a window
+#: decodes; a padded input at most this wide decodes in one pass at an
+#: out_cap up to ``_ROW``. A
+#: window's span peaks at 5.06 GiB of device memory at 2^23, 10.13 at
+#: 2^24 and 18.78 at 2^25, at the same speed (scripts/raw_windows.py on
+#: an H100)
+_WIN = 1 << 23
+#: input bytes a window reads past its new bytes: a head that starts in
+#: the new bytes is decided there if its successor lies inside the span
+_MARGIN = 1 << 12
+#: a window's output length when nothing caps it (int32's largest)
+_NO_CAP = (1 << 31) - 1
 
 
 def _seg_reverse_sum(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -169,14 +191,21 @@ def _heads(comp: torch.Tensor, inbits: torch.Tensor, nbits: int,
     return delta.to(_I32), head_ok, length.to(_I32), low.to(_I32)
 
 
-def _check_out_cap(out_cap: int, cpad: int) -> None:
+def _check_out_cap(out_cap: int) -> None:
     if not 0 < out_cap <= MAX_WIDE_OUT_CAP:
         raise ValueError(f"out_cap {out_cap} outside (0, {MAX_WIDE_OUT_CAP}]")
-    if out_cap > _ROW and cpad > MAX_WIDE_INPUT:
-        raise ValueError(
-            f"input of {cpad} bytes past {MAX_WIDE_INPUT}: at out_cap "
-            f"{out_cap} > {_ROW} the records' output positions are int32 "
-            f"sums of the token lengths, which must stay below 2^31")
+
+
+def _padded(c0: int) -> int:
+    """The input bytes of a row C wide: multiples of 1024, as in JAX (its
+    walk's widest row block)."""
+    return max(-(-c0 // 1024) * 1024, 1024)
+
+
+def _slot_width(nbits: int) -> int:
+    """Record slots of a row of ``nbits`` bit nodes: one per 9 bits."""
+    s9 = -(-nbits // 9)
+    return max(-(-s9 // 128) * 128, _MIN_SLOTS)
 
 
 def decode_batch_bits(comp: torch.Tensor, inbytes: torch.Tensor, *,
@@ -186,17 +215,19 @@ def decode_batch_bits(comp: torch.Tensor, inbytes: torch.Tensor, *,
     comp: uint8/int32[B, C] compressed bytes (zero padding past
     ``inbytes`` is fine); inbytes: int32[B] valid input lengths; out_cap:
     output capacity in bytes (at most ``MAX_WIDE_OUT_CAP``; past
-    ``MAX_OUT_CAP`` = 2^18 the output expands in windows and C is at most
-    ``MAX_WIDE_INPUT``); multi_stream: continue across end markers
-    (incremental semantics) instead of stopping at the first.
+    ``MAX_OUT_CAP`` = 2^18, or with C past ``_WIN``, the decode runs in
+    windows of the input and its output expands in windows of 2^18
+    bytes); multi_stream: continue across end markers (incremental
+    semantics) instead of stopping at the first.
 
     Returns (out uint8[B, out_cap], out_len int32[B], end_markers
     int32[B]), the contract of ``decode.decode_batch``.
     """
     b, c0 = comp.shape
-    # multiples of 1024 bytes, as in JAX (its walk's widest row block)
-    cpad = max(-(-c0 // 1024) * 1024, 1024)
-    _check_out_cap(out_cap, cpad)
+    cpad = _padded(c0)
+    _check_out_cap(out_cap)
+    if cpad > _WIN or out_cap > _ROW:
+        return _decode_windows(comp, inbytes, out_cap, multi_stream)
     nbits = cpad * 8
     inbits = inbytes.to(_I32)[:, None] * 8
 
@@ -206,11 +237,7 @@ def decode_batch_bits(comp: torch.Tensor, inbytes: torch.Tensor, *,
     with trace.stage("walk"):
         heads = tokenize.token_starts(delta, inbits[:, 0])
         del delta
-    s9 = -(-nbits // 9)
-    spad = max(-(-s9 // 128) * 128, _MIN_SLOTS)
-    if out_cap > _ROW:
-        return _decode_wide(heads & head_ok, length, low, nbits, spad,
-                            out_cap)
+    spad = _slot_width(nbits)
     with trace.stage("records"):
         # slot compaction first: heads are >= 9 bits apart, so bit // 9 is
         # injective over them and a max over each 9-bit group keeps the
@@ -240,42 +267,32 @@ def decode_batch_bits(comp: torch.Tensor, inbytes: torch.Tensor, *,
     return out, out_len, markers
 
 
-def _decode_wide(real: torch.Tensor, length: torch.Tensor, low: torch.Tensor,
-                 nbits: int, spad: int, out_cap: int):
-    """The records stage and the expansion past ``_ROW``: the slots as
-    the one-row path's, with each head's length and low bits kept apart
-    (length << 12 leaves int32 past 2^19), and the output expanded in
-    windows."""
+def _slots(real: torch.Tensor, length: torch.Tensor, low: torch.Tensor,
+           nbits: int, spad: int):
+    """(valid, length, low) of each 9-bit slot: the one real head of the
+    group, by its bit, with its length and low bits kept apart (length <<
+    12 leaves int32 past 2^19); length 0 where the slot has none."""
     b = real.shape[0]
-    with trace.stage("records"):
-        # the one head of each 9-bit group, by its bit (-1 where none)
-        at = torch.arange(nbits, dtype=_I32, device=real.device)
-        at = F.pad(torch.where(real, at, -1), (0, spad * 9 - nbits),
-                   value=-1)
-        slot_at = at.reshape(b, spad, 9).amax(dim=2)
-        del at
-        valid_s = slot_at >= 0
-        g = slot_at.clamp(min=0).long()
-        len_s = torch.where(valid_s, length.gather(1, g), 0)
-        low_s = low.gather(1, g)
-        del g, slot_at
-        opos = pext.cumsum_rows_wide(len_s, tile=spad) - len_s
-        out_len = (opos[:, -1] + len_s[:, -1]).clamp(max=out_cap)
-        kept = valid_s & (opos < out_cap)
-        markers = (kept & (len_s == 0) & (low_s == 0)).sum(dim=1, dtype=_I32)
-    out = _expand_windows(opos, len_s, low_s, kept, out_len, out_cap)
-    return out, out_len, markers
+    at = torch.arange(nbits, dtype=_I32, device=real.device)
+    at = F.pad(torch.where(real, at, -1), (0, spad * 9 - nbits), value=-1)
+    slot_at = at.reshape(b, spad, 9).amax(dim=2)
+    del at
+    valid = slot_at >= 0
+    g = slot_at.clamp(min=0).long()
+    return valid, torch.where(valid, length.gather(1, g), 0), low.gather(1, g)
 
 
 def _expand_windows(opos: torch.Tensor, length: torch.Tensor,
-                    low: torch.Tensor, kept: torch.Tensor,
-                    out_len: torch.Tensor, out_cap: int) -> torch.Tensor:
-    """uint8[B, out_cap]: the records' output, in windows of ``_ROW``
-    bytes, each the one-row fill (K8) and expansion (K17) of:
+                    low: torch.Tensor, kept: torch.Tensor, lens: list[int],
+                    out: torch.Tensor, rows: list[int],
+                    base: list[int]) -> None:
+    """Write the records' output into out[rows[i], base[i]:base[i] +
+    lens[i]] (opos counts from base[i]), in windows of ``_ROW`` bytes,
+    each the one-row fill (K8) and expansion (K17) of:
 
-      * ``_HIST`` literal records, the ``_HIST`` output bytes before the
-        window (zeros before the first, which read as the sources before
-        the block start do);
+      * ``_HIST`` literal records, the ``_HIST`` bytes of ``out`` before
+        the window (zeros before the row's start, which read as the
+        sources before the block start do);
       * the copy that covers the window's first byte from before it, if
         one does, restarted there: a copy of offset d is d-periodic, so
         from any byte on it reads what it would have read;
@@ -289,7 +306,9 @@ def _expand_windows(opos: torch.Tensor, length: torch.Tensor,
     b, s = opos.shape
     dev = opos.device
     new = _ROW - _HIST
-    nwin = -(-out_cap // new)
+    nwin = -(-max(lens, default=0) // new)
+    if nwin == 0:
+        return
     with trace.stage("raw_fill"):
         w0 = torch.arange(nwin, dtype=_I32, device=dev) * new
         # window k's slots: lo[k] <= slot < lo[k + 1] (opos is
@@ -306,24 +325,182 @@ def _expand_windows(opos: torch.Tensor, length: torch.Tensor,
         hist_at = torch.arange(_HIST, dtype=_I32, device=dev) << 13
         bounds = torch.cat([lo, torch.full((b, 1), s, device=dev,
                                            dtype=lo.dtype)], dim=1)
-        bounds, lens = bounds.cpu().tolist(), out_len.cpu().tolist()
-    out = torch.zeros((b, out_cap), dtype=torch.uint8, device=dev)
-    for r in range(b):
-        for k in range(-(-lens[r] // new)):
-            start, a, e = k * new, bounds[r][k], bounds[r][k + 1]
-            # zeros before the block start
-            hist = F.pad(out[r, max(start - _HIST, 0):start],
-                         (max(_HIST - start, 0), 0))
+        bounds = bounds.cpu().tolist()
+    for i, r in enumerate(rows):
+        for k in range(-(-lens[i] // new)):
+            start, a, e = k * new, bounds[i][k], bounds[i][k + 1]
+            at = base[i] + start
+            # zeros before the row's start
+            hist = F.pad(out[r, max(at - _HIST, 0):at],
+                         (max(_HIST - at, 0), 0))
             rec = torch.cat([
-                hist_at | hist.to(_I32), head[r, k:k + 1],
-                torch.where(kept[r, a:e],
-                            ((opos[r, a:e] - (start - _HIST)) << 13)
-                            | low[r, a:e], -1)])
+                hist_at | hist.to(_I32), head[i, k:k + 1],
+                torch.where(kept[i, a:e],
+                            ((opos[i, a:e] - (start - _HIST)) << 13)
+                            | low[i, a:e], -1)])
             with trace.stage("raw_fill"):
                 fill = pext.cummax_rows(rec[None].contiguous())
-            take = min(new, lens[r] - start)
+            take = min(new, lens[i] - start)
             n = torch.full((1,), _HIST + take, dtype=_I32, device=dev)
             with trace.stage("raw_expand"):
                 got, _ = pexpand.expand_records(fill, n, _ROW)
-            out[r, start:start + take] = got[0, _HIST:_HIST + take]
-    return out
+            out[r, at:at + take] = got[0, _HIST:_HIST + take]
+
+
+def _final(t: torch.Tensor, delta: torch.Tensor, head_ok: torch.Tensor,
+           length: torch.Tensor, nbits: int, new: int, entry: torch.Tensor,
+           left: torch.Tensor, ends_in: torch.Tensor) -> torch.Tensor:
+    """bool[B, nbits]: the heads that a span of nbits // 8 bytes decides.
+
+    A head's fields, its extension nibbles and its fit read the 32 bits
+    from it (``_bit_windows``) and its chain, all inside the span, so a
+    head that starts in the window's ``new`` bytes and whose successor
+    starts 32 bits or more before the span's end is decided, and so is
+    an end marker there (the chain ends or, in multi-stream mode, goes on
+    from the next byte). A chain cut by the span's end reads as ended,
+    but its successor then lies past the span. The entry head is also
+    decided where even its cut chain fills what is ``left`` of the
+    output. Where the row ends inside the span (``ends_in``) every head
+    is decided, starvation included: its input fit reads the row's true
+    length.
+    """
+    exact = t + 32 <= nbits
+    fin = (t < 8 * new) & ((t + delta + 32 <= nbits)
+                           | (exact & head_ok & (length == 0)))
+    fin |= (t == entry[:, None]) & head_ok & (length >= left[:, None])
+    return fin | ends_in[:, None]
+
+
+def _window_loop(comp: torch.Tensor, inbytes: list[int], cap: int | None,
+                 multi_stream: bool, emit) -> tuple[list[int], list[int]]:
+    """Decode the rows of comp (uint8/int32[B, C]) in windows of the
+    input; returns the rows' (out_len, end_markers) as host ints.
+
+    Each row carries its entry head's absolute bit (bit 0 first), its
+    output base and its marker count on the host. A window takes the
+    rows still decoding, ``_WIN`` new bytes over them, and reads each
+    row's span from its entry's byte: steps 1-4 of the module docstring
+    on the span (the walk from the entry's bit in that byte), of which
+    ``_final``'s heads make the window's records, their output offsets
+    local cumsums (K9). ``emit(rows, base, opos, length, low, kept,
+    lens)`` then expands them (``lens``: each row's output bytes, the
+    records' total cut at what is left of ``cap``; None: no cap). A row
+    is done when its chain ends in a window or its output reaches cap.
+    A window that decides no head of some row (its entry's run of
+    extension nibbles passes the span) is taken again with twice the new
+    bytes, up to spans of ``MAX_WIDE_INPUT``.
+    """
+    b, c0 = comp.shape
+    dev = comp.device
+    # the bytes a row's walk reads: as in one pass over the padded input
+    ends = [min(n, _padded(c0)) for n in inbytes]
+    entry, base, markers = [0] * b, [0] * b, [0] * b
+    active = [r for r in range(b) if ends[r] > 0]
+    width = _WIN
+    while active:
+        new = max(width // len(active), 1)
+        at = [entry[r] >> 3 for r in active]
+        span = min(new + _MARGIN, MAX_WIDE_INPUT,
+                   max(ends[r] - e for r, e in zip(active, at)))
+        nbits = span * 8
+        rows = torch.stack([F.pad(comp[r, e:e + span],
+                                  (0, span - max(min(c0 - e, span), 0)))
+                            for r, e in zip(active, at)])
+        left = [_NO_CAP if cap is None else min(cap - base[r], _NO_CAP)
+                for r in active]
+        # per row: its input bits from the span's start (past the span
+        # read as going on), the walk's length, the entry's bit, what is
+        # left of the output, and whether the row ends in the span
+        per = torch.tensor(
+            [[8 * min(inbytes[r] - e, span + 4), 8 * min(ends[r] - e, span),
+              entry[r] & 7, lf, int(ends[r] - e <= span)]
+             for r, e, lf in zip(active, at, left)],
+            dtype=_I32).to(dev)
+        inbits, nwalk, first, lefts, ends_in = per.unbind(1)
+        with trace.stage("heads"):
+            delta, head_ok, length, low = _heads(
+                rows, inbits[:, None], nbits,
+                _NO_CAP if cap is None else cap, multi_stream)
+            del rows
+        with trace.stage("walk"):
+            # the walk starts at bit 0: its first step goes to the entry
+            # (bit 0 is then no head of the orbit, so _final never reads
+            # its step)
+            delta[:, 0] = torch.where(first > 0, first, delta[:, 0])
+            heads = tokenize.token_starts(delta, nwalk)
+        with trace.stage("records"):
+            t = torch.arange(nbits, dtype=_I32, device=dev)[None]
+            orbit = heads & (t >= first[:, None])
+            del heads
+            fin = _final(t, delta, head_ok, length, nbits, new, first,
+                         lefts, ends_in.bool())
+            del delta
+            # the next window's entry: the first head not decided here
+            nxt = torch.where(orbit & ~fin, t, nbits).amin(dim=1)
+            valid_s, len_s, low_s = _slots(orbit & fin & head_ok, length,
+                                           low, nbits, _slot_width(nbits))
+            del orbit, fin, head_ok, length, low
+            opos = pext.cumsum_rows_wide(len_s) - len_s
+            total = opos[:, -1] + len_s[:, -1]
+            kept = valid_s & (opos < lefts[:, None])
+            mk = (kept & (len_s == 0) & (low_s == 0)).sum(dim=1, dtype=_I32)
+            got = torch.stack([nxt, torch.minimum(total, lefts), mk],
+                              dim=1).tolist()
+        emit(active, [base[r] for r in active], opos, len_s, low_s, kept,
+             [g[1] for g in got])
+        still, stuck = [], False
+        for r, e, (nx, n, m) in zip(active, at, got):
+            base[r] += n
+            markers[r] += m
+            if nx == nbits or (cap is not None and base[r] >= cap):
+                continue
+            stuck |= nx == entry[r] - 8 * e
+            entry[r] = 8 * e + nx
+            still.append(r)
+        if stuck and span == MAX_WIDE_INPUT:
+            raise ValueError(
+                f"a token's extension nibbles run past {MAX_WIDE_INPUT} "
+                f"input bytes: its length leaves int32")
+        width = 2 * width if stuck else _WIN
+        active = still
+    return base, markers
+
+
+def _decode_windows(comp: torch.Tensor, inbytes: torch.Tensor, out_cap: int,
+                    multi_stream: bool):
+    """``decode_batch_bits`` of rows wider than ``_WIN``: the window loop
+    into one output row each, every window's records expanded at the
+    row's output base behind the row's own bytes."""
+    b = comp.shape[0]
+    dev = comp.device
+    out = torch.zeros((b, out_cap), dtype=torch.uint8, device=dev)
+
+    def emit(rows, base, opos, length, low, kept, lens):
+        _expand_windows(opos, length, low, kept, lens, out, rows, base)
+
+    out_len, markers = _window_loop(comp, inbytes.tolist(), out_cap,
+                                    multi_stream, emit)
+    return (out, torch.tensor(out_len, dtype=_I32, device=dev),
+            torch.tensor(markers, dtype=_I32, device=dev))
+
+
+def decode_to_host(comp: torch.Tensor, *, multi_stream: bool = False
+                   ) -> bytes:
+    """Decode one raw stream (uint8[C], any C) with no output capacity:
+    the window loop on one row, each window's output (its records'
+    total, one host read) expanded on comp's device behind the last
+    ``_HIST`` bytes before it and appended on the host."""
+    dev = comp.device
+    parts = []
+    hist = torch.zeros((1, _HIST), dtype=torch.uint8, device=dev)
+
+    def emit(rows, base, opos, length, low, kept, lens):
+        nonlocal hist
+        buf = torch.cat([hist, hist.new_zeros((1, lens[0]))], dim=1)
+        _expand_windows(opos, length, low, kept, lens, buf, [0], [_HIST])
+        parts.append(buf[0, _HIST:].cpu().numpy().tobytes())
+        hist = buf[:, -_HIST:]
+
+    _window_loop(comp.reshape(1, -1), [comp.numel()], None, multi_stream,
+                 emit)
+    return b"".join(parts)

@@ -20,9 +20,11 @@ Port of ``lzs_tpu.ops.decode``'s entry points and both of its engines:
           ``_parse_scan_plain``, a torch loop over the steps, then the
           fill's layout and plain cummax.
 
-Engine "bits" takes any ``out_cap`` up to ``bitpar.MAX_WIDE_OUT_CAP``:
-past ``MAX_OUT_CAP`` = 2^18 it expands its output in windows of 2^18
-bytes (``bitpar._expand_windows``). Engine "scan" takes ``out_cap`` up to
+Engine "bits" takes any input width and any ``out_cap`` up to
+``bitpar.MAX_WIDE_OUT_CAP``: past ``MAX_OUT_CAP`` = 2^18 it expands its
+output in windows of 2^18 bytes (``bitpar._expand_windows``), and an
+input past ``bitpar._WIN`` bytes decodes in windows of the input
+(``bitpar._window_loop``). Engine "scan" takes ``out_cap`` up to
 2^18 and raises ValueError above it: its records pack the output position
 as ``opos << 13`` into int32. (JAX sends any out_cap past 2^18 to its scan
 engine, which packs positions from 2^18 on into the sign bit and past it

@@ -11,8 +11,9 @@
   bytes, computed once in a module fixture.
 * The raw decode runs on the device (here the CPU) at every size: past
   2^18 output bytes and past 16 times the input, where JAX's CLI hands
-  the stream to its host decoder, it never reaches the host; an error on
-  the device path propagates.
+  the stream to its host decoder, past the raw decoder's input window
+  (cut to a few KiB) and past ``MAX_WIDE_OUT_CAP`` (cut too), it never
+  reaches the host; an error on the device path propagates.
 """
 
 import contextlib
@@ -28,7 +29,7 @@ from lzs_tpu import reference as jref
 from lzs_tpu.blocks import BlockCodec as JBlockCodec
 from lzs_tpu_torch import cli
 from lzs_tpu_torch.blocks import FLAG_LAZY
-from lzs_tpu_torch.ops import decode as dec_ops
+from lzs_tpu_torch.ops import bitpar, pwalk
 from lzs_tpu_torch.utils import native
 
 from test_blocks_dist import make_corpus
@@ -131,9 +132,9 @@ def no_host_decode(monkeypatch):
 
 
 def test_cli_device_route_past_2_18(tmp_path, no_host_decode):
-    """A raw stream over 2^16 bytes needs an out_cap past 2^18 from the
-    first decode on (JAX's CLI decodes it on the host): it decodes on
-    the device, in windows, to the input."""
+    """A raw stream over 2^16 bytes decodes to some 70000 bytes; a first
+    out_cap from 4 times its input is past 2^18, where JAX's CLI decodes
+    it on the host: it decodes on the device to the input."""
     data = np.random.default_rng(3).integers(0, 256, 70000,
                                              dtype=np.uint8).tobytes()
     comp = native.compress(data)
@@ -144,30 +145,77 @@ def test_cli_device_route_past_2_18(tmp_path, no_host_decode):
 
 
 def test_cli_device_route_past_16x(tmp_path, monkeypatch, no_host_decode):
-    """Zeros expand some 30 times: the capacity doubles past 16 times the
-    input (where JAX's CLI goes to the host) and the stream decodes on
-    the device at out_cap 2^16."""
+    """Zeros expand some 30 times, past 16 times the input (where JAX's
+    CLI goes to the host): the stream decodes on the device, each
+    window's records expanded there with no output capacity."""
     data = bytes(60000)
     comp = native.compress(data)
-    caps = []
-    decode_block = dec_ops.decode_block
+    lens = []
+    expand = bitpar._expand_windows
 
-    def spy(*args, **kw):
-        caps.append(kw["out_cap"])
-        return decode_block(*args, **kw)
+    def spy(opos, length, low, kept, n, *args):
+        lens.extend(n)
+        assert opos.device.type == "cpu"
+        return expand(opos, length, low, kept, n, *args)
 
-    monkeypatch.setattr(dec_ops, "decode_block", spy)
+    monkeypatch.setattr(bitpar, "_expand_windows", spy)
     back, err = decompress(tmp_path, comp)
     assert back == data
     assert "route: device\n" in err
-    assert caps[-1] > 16 * len(comp) and caps[-1] == 1 << 16
+    assert sum(lens) == len(data) > 16 * len(comp)
+
+
+def _windows(monkeypatch, win: int) -> list[int]:
+    """Cut the raw decoder's input window to ``win`` bytes; the spans of
+    the windows it takes are appended to the list returned."""
+    spans = []
+    heads = bitpar._heads
+
+    def spy(comp, *args, **kw):
+        spans.append(comp.shape[1])
+        return heads(comp, *args, **kw)
+
+    monkeypatch.setattr(bitpar, "_WIN", win)
+    monkeypatch.setattr(bitpar, "_MARGIN", 256)
+    monkeypatch.setattr(bitpar, "_heads", spy)
+    return spans
+
+
+def test_cli_raw_past_the_window(tmp_path, monkeypatch, no_host_decode):
+    """A raw file of blocks past the raw decoder's input window (cut to 2
+    KiB; text and noise, so the file is some 10 KB) decodes on the
+    device, window by window, to the input."""
+    spans = _windows(monkeypatch, 2048)
+    data = DATA + np.random.default_rng(4).integers(
+        0, 256, 9000, dtype=np.uint8).tobytes()
+    comp, _ = run(tmp_path, ["compress", "--block", "2048", *CPU], data)
+    assert len(comp) > 4 * 2048
+    back, err = decompress(tmp_path, comp)
+    assert back == data
+    assert "route: device\n" in err
+    assert len(spans) >= len(comp) // (2048 + 256)
+
+
+def test_cli_raw_past_max_wide_out_cap(tmp_path, monkeypatch,
+                                       no_host_decode):
+    """The CLI's raw decode has no output capacity: with the decoder's
+    widest out_cap cut to 4096 bytes, a raw file of 8000 bytes of output
+    (over windows of the input) decodes on the device to the input."""
+    monkeypatch.setattr(bitpar, "MAX_WIDE_OUT_CAP", 4096)
+    spans = _windows(monkeypatch, 128)
+    comp = jref.lzs_compress(DATA)
+    assert len(DATA) > bitpar.MAX_WIDE_OUT_CAP
+    back, err = decompress(tmp_path, comp)
+    assert back == DATA
+    assert "route: device\n" in err
+    assert len(spans) > 1
 
 
 def test_cli_device_errors_propagate(tmp_path, monkeypatch):
     def fails(*args, **kw):
         raise RuntimeError("device failure")
 
-    monkeypatch.setattr(dec_ops, "decode_block", fails)
+    monkeypatch.setattr(pwalk, "walk_starts", fails)
     with pytest.raises(RuntimeError, match="device failure"):
         decompress(tmp_path, jref.lzs_compress(DATA))
 

@@ -40,7 +40,8 @@ call held to its plain version, the exhaustive plane's K7 rows at batch
 CPU and the C encoder. The codec profiles' match tables (windows 2047,
 2174, 4095) and far-offset tokens equal the CPU's on the card; the raw
 decoder's windows past 2^18 output bytes equal the CPU and the input;
-the CLI's raw decode takes the device route at every size; and
+the CLI's raw decode takes the device route at every size, a raw file
+past 2^25 bytes of input included (windows of the input); and
 DistributedCodec on an NCCL world of one equals BlockCodec.
 """
 
@@ -1354,9 +1355,9 @@ def test_wide_raw_decode_on_card(cuda):
 
 def test_cli_raw_decode_takes_the_device_route(cuda, tmp_path):
     """The CLI's raw decode on the card (its default device): four blocks
-    of the bench corpus (a ~53 KB stream) decode at out_cap 2^18, and
-    sixteen blocks (past 2^18 output bytes, which JAX's CLI decodes on
-    the host) in windows, through the raw decoder's kernels."""
+    of the bench corpus (a ~53 KB stream), and sixteen blocks (past 2^18
+    output bytes, which JAX's CLI decodes on the host, expanded in
+    windows of 2^18), through the raw decoder's kernels."""
     import contextlib
     import io
 
@@ -1377,6 +1378,42 @@ def test_cli_raw_decode_takes_the_device_route(cuda, tmp_path):
         assert out.read_bytes() == data[:size]
         assert "route: device\n" in err.getvalue()
         assert counts["walk_tables"] > 0 and counts["expand"] > 0
+
+
+def test_raw_file_past_2_25_on_card(cuda, tmp_path):
+    """A raw file past 2^25 bytes of input (the C encoder's blocks of the
+    8 MiB bench corpus, repeated: some 37 MiB) decodes on the card to
+    its input through decode_bytes (multi-stream, out_cap the output)
+    and through cli.main, over windows of the input that launch the
+    walk (K11-K13), the chained scans (K7-K9) and the expansion (K17)."""
+    import contextlib
+    import io
+
+    from bench import make_corpus
+    from lzs_tpu_torch import cli
+    from lzs_tpu_torch.ops import bitpar
+    from lzs_tpu_torch.utils import native
+
+    data = make_corpus(1 << 23)
+    raw = b"".join(native.compress(data[s:s + (1 << 15)])
+                   for s in range(0, len(data), 1 << 15))
+    reps = (1 << 25) // len(raw) + 1
+    chain, want = raw * reps, data * reps
+    assert len(chain) > 1 << 25 > 2 * bitpar._WIN
+    _kernels.reset_launches()
+    assert decode.decode_bytes(chain, len(want), multi_stream=True) == want
+    counts = _kernels.launch_counts()
+    for name in ("walk_tables", "walk_entries", "walk_descent",
+                 "rowscan_rcummin", "rowscan_cumsum", "rowscan_cummax"):
+        assert counts[name] >= 2, (name, counts[name])
+    assert counts["expand"] > len(want) >> 18
+    src, out = tmp_path / "big.lzs", tmp_path / "big.out"
+    src.write_bytes(chain)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert cli.main(["decompress", "-v", str(src), str(out)]) == 0
+    assert out.read_bytes() == want
+    assert "route: device\n" in err.getvalue()
 
 
 def test_distributed_codec_nccl_world_of_one(cuda, tmp_path):

@@ -14,7 +14,13 @@ cases of tests/test_ops.py, a 2^18-byte output checked against
 ``BlockCodec.decode_batch_raw``. Past 2^18 output bytes, where JAX's
 decoder corrupts its output (ROADMAP F9), engine "bits" expands in
 windows: held to the one-row expansion with narrow windows, and to
-``lzs_tpu.reference`` and the input at out_cap 2^19 and 2^20.
+``lzs_tpu.reference`` and the input at out_cap 2^19 and 2^20. An input
+wider than ``bitpar._WIN`` decodes in windows of the input: held bitwise
+to the one-pass decode (``_WIN`` and ``_MARGIN`` cut to a few KiB or
+bytes) at batch >= 33 in both modes, on every window cut of a short
+chain, and where a run of extension nibbles longer than the span makes
+it grow; its bytes to ``lzs_tpu.reference`` and ``utils.native``'s C
+decoder.
 """
 
 import functools
@@ -339,15 +345,28 @@ def test_decode_past_2_18_equals_reference():
 
 
 def test_wide_input_bound_raises(monkeypatch):
-    """Past 2^18 output bytes the input is bounded (its token lengths
-    sum in int32); narrower out_caps take any input."""
-    monkeypatch.setattr(bitpar, "MAX_WIDE_INPUT", 1024)
-    buf = torch.zeros((1, 2048), dtype=torch.uint8)
-    n = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\^31"):
-        decode.decode_batch(buf, n, out_cap=bitpar.MAX_OUT_CAP + 1)
-    out, out_len, _ = decode.decode_batch(buf, n, out_cap=64)
-    assert out.shape == (1, 64) and int(out_len[0]) == 0
+    """The input is not bounded: past ``_WIN`` it decodes in windows at
+    any out_cap (a window's span, at most ``MAX_WIDE_INPUT`` bytes, keeps
+    its sums in int32). The one thing that raises is a token whose run
+    of extension nibbles passes that span where no out_cap cuts it
+    (``decode_to_host``); under an out_cap the token's head fills the
+    output, which ends the decode."""
+    monkeypatch.setattr(bitpar, "_WIN", 256)
+    monkeypatch.setattr(bitpar, "_MARGIN", 64)
+    zeros = native.compress(bytes(15000))
+    buf, lens = _batch([zeros, b""])
+    for out_cap in (64, bitpar.MAX_OUT_CAP + 1):
+        out, out_len, markers = _port(buf, lens, out_cap=out_cap)
+        assert out.shape == (2, out_cap)
+        assert list(out_len) == [min(out_cap, 15000), 0]
+        assert not out.any()
+        assert list(markers) == [int(out_cap > 15000), 0]
+    monkeypatch.setattr(bitpar, "MAX_WIDE_INPUT", 320)
+    with pytest.raises(ValueError, match="int32"):
+        bitpar.decode_to_host(torch.from_numpy(np.frombuffer(
+            zeros, np.uint8).copy()))
+    got = _port(buf, lens, out_cap=5000)
+    assert list(got[1]) == [5000, 0] and not got[0].any()
 
 
 @pytest.mark.parametrize("out_cap", [64, bitpar.MAX_OUT_CAP])
@@ -408,3 +427,129 @@ def test_block_codec_decode_batch_raw_matches_jax():
         {"comp": np.asarray(comp), "clen": np.asarray(clen)}, "cpu")
     again = codec.decode_batch_raw(moved["comp"], moved["clen"])
     assert torch.equal(again[0], out)
+
+
+def _in_windows(monkeypatch, win, margin, fn):
+    """fn() with ``_WIN`` and ``_MARGIN`` cut to ``win`` and ``margin``,
+    and the spans of the windows it took (``_heads``' widths)."""
+    spans = []
+    heads = bitpar._heads
+
+    def spy(comp, *args, **kw):
+        spans.append(comp.shape[1])
+        return heads(comp, *args, **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(bitpar, "_WIN", win)
+        m.setattr(bitpar, "_MARGIN", margin)
+        m.setattr(bitpar, "_heads", spy)
+        return fn(), spans
+
+
+def _decoded(stream: bytes, multi: bool) -> bytes:
+    """The C decoder of the JAX package's ``utils.native``, reading on
+    past each end marker or stopping at the first; where the stream is
+    whole and ends at its first marker, ``lzs_tpu.reference`` too."""
+    got = native.decompress(stream, out_cap=1 << 20, multi_stream=multi)
+    try:
+        whole = ref.lzs_decompress(stream)
+    except EOFError:          # the reference reads no cut stream
+        return got
+    if not multi or got == whole:
+        assert got == whole
+    return got
+
+
+@pytest.fixture(scope="module")
+def rows37(fuzz):
+    """The fuzz set's 32 rows and the 5 chains of ``_wide_chains``
+    (text, zeros and noise over many windows): batch 37."""
+    buf, lens, _ = fuzz
+    streams = [buf[i, :lens[i]].tobytes() for i in range(len(lens))]
+    streams += _wide_chains()
+    return (*_batch(streams), streams)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("win,margin", [(2048, 256), (512, 64)])
+def test_input_windows_equal_one_pass(monkeypatch, rows37, multi, win,
+                                      margin):
+    """Rows wider than ``_WIN`` decode in windows of ``_WIN`` bytes over
+    the rows still decoding: bitwise the one-pass decode (bytes, lengths,
+    end markers) at batch 37, at out_caps that end inside a window's
+    output, past 2^18 (the wide records) and past every output; each
+    row's bytes are the JAX package's decoders'."""
+    buf, lens, streams = rows37
+    assert len(lens) >= 33
+    for out_cap in (2305, 40000, bitpar.MAX_OUT_CAP + 4096):
+        want = _port(buf, lens, out_cap=out_cap, multi_stream=multi)
+        got, spans = _in_windows(
+            monkeypatch, win, margin,
+            lambda: _port(buf, lens, out_cap=out_cap, multi_stream=multi))
+        _assert_equal(got, want)
+        assert len(spans) > 3
+    for i, st in enumerate(streams):
+        assert got[0][i, :got[1][i]].tobytes() == _decoded(st, multi)
+
+
+def test_every_window_cut_equals_one_pass(monkeypatch):
+    """A short chain (text, a run of zeros, text, as three streams) at
+    every window width from 1 byte to its length behind an 8-byte margin:
+    its windows end at most of its heads and inside its tokens, and each
+    decode equals the one-pass decode bitwise in both modes."""
+    from test_stream import mixed_data
+
+    data = mixed_data(3, 700)
+    chain = (native.compress(data[:300]) + native.compress(bytes(600))
+             + native.compress(data[300:]))
+    buf, lens = _batch([chain])
+    for multi in (False, True):
+        want = _port(buf, lens, out_cap=4096, multi_stream=multi)
+        assert want[0][0, :want[1][0]].tobytes() == _decoded(chain, multi)
+        for win in range(1, len(chain) - 8):
+            got, spans = _in_windows(
+                monkeypatch, win, 8,
+                lambda: _port(buf, lens, out_cap=4096, multi_stream=multi))
+            _assert_equal(got, want)
+            # a single stream ends at its first marker, in the first span
+            # that holds it
+            assert len(spans) > 1 or not multi
+
+
+@pytest.mark.parametrize("out_cap", [100, 5000, 14999, 20000])
+def test_nibble_run_past_the_span_grows_it(monkeypatch, out_cap):
+    """15000 zeros are one copy whose run of 15-nibbles (some 500 bytes)
+    is longer than a window's span (64 + 16 bytes): the window that
+    decides no head takes twice the new bytes until it does, or until
+    the cut chain already fills the out_cap. Bitwise the one-pass
+    decode and the reference's bytes."""
+    stream = native.compress(bytes(15000))
+    buf, lens = _batch([stream])
+    want = _port(buf, lens, out_cap=out_cap)
+    got, spans = _in_windows(monkeypatch, 64, 16,
+                             lambda: _port(buf, lens, out_cap=out_cap))
+    _assert_equal(got, want)
+    assert got[0][0, :got[1][0]].tobytes() == bytes(min(out_cap, 15000))
+    grew = [s for s in spans if s > 64 + 16]
+    assert bool(grew) == (out_cap > 2400)
+
+
+def test_decode_to_host_equals_reference(monkeypatch):
+    """``decode_to_host`` (the CLI's route: no out_cap, each window's
+    output appended on the host) on chains that cross many windows, a
+    growing span included: the C decoder's bytes (multi-stream) and the
+    reference's (single), the one-pass decode's at a cap past them."""
+    windows = []
+    for stream in _wide_chains():
+        for multi in (False, True):
+            want = _decoded(stream, multi)
+            got, spans = _in_windows(
+                monkeypatch, 256, 64, lambda: bitpar.decode_to_host(
+                    torch.from_numpy(np.frombuffer(stream, np.uint8).copy()),
+                    multi_stream=multi))
+            assert got == want
+            assert got == decode.decode_bytes(stream, 1 << 16,
+                                              multi_stream=multi,
+                                              device="cpu")
+            windows.append(len(spans))
+    assert max(windows) > 10
