@@ -112,7 +112,12 @@ non-zero):
               MiB (the C encoder's one-shot bytes); each call's
               host-clock MB/s and route, the whole and the big raw
               files' decode stages, and the big file's windows and peak
-              device memory;
+              device memory; then the long token (a copy whose run of
+              2^27 + 2^24 extension nibbles passes 2^26 input bytes,
+              2,264,924,173 bytes out) through the CLI's raw decode on
+              the card, its length, ends and SHA-256 against the copy
+              rule's bytes, its wall, input windows and peak device
+              memory;
  10. dist     DistributedCodec(block=32768) on an NCCL world of one
               (a FileStore under build/), counters reset just before: its
               payload and sync arrays equal BlockCodec's, its decompress
@@ -212,6 +217,14 @@ BIG_MIB = 40
 #: windows of the input repeat their shapes; the plain walk's entries at
 #: a window's 524,544 tiles take some 20 s)
 BIG_KEEP = 3
+#: the CLI phase's long token: a copy of offset 1 whose run of
+#: extension nibbles (2^26 + 2^23 input bytes) passes 2^26 bytes, and
+#: whose output passes 2^31 bytes; it decodes in input windows that each
+#: cut the run
+LONG_NIBBLES = (1 << 27) + (1 << 24)
+#: the raw decoder's kernels, which the long token's decode launches
+RAW_KERNELS = ("rowscan_rcummin", "rowscan_cummax", "rowscan_cumsum",
+               "walk_tables", "walk_entries", "walk_descent", "expand")
 #: the stream phase's depth cut (1 MiB of the corpus) and feed size
 STREAM_SIZE = 1 << 20
 STREAM_FEED = 1 << 16
@@ -1248,6 +1261,78 @@ def big_raw(raw: bytes) -> tuple[bytes, int]:
     return raw * reps, reps
 
 
+def long_token_file(nibbles: int) -> tuple[bytes, int]:
+    """A raw file of one long token, and the a's it decodes to (then one
+    b): a literal a, a copy of offset 1 with length code 1111,
+    ``nibbles`` extension nibbles of 15 and the end nibble 3, a literal b
+    and an end marker, bit by bit at its ends and 0xff bytes between. Its
+    token is 8 + 15 * nibbles + 3 bytes, each the one before it."""
+    head = "0" + format(ord("a"), "08b") + "11" + "0000001" + "1111"
+    fill = -len(head) % 8
+    whole, rest = divmod(4 * nibbles - fill, 8)
+    end = "1" * rest + "0011" + "0" + format(ord("b"), "08b") + "110000000"
+    end += "0" * (-len(end) % 8)
+
+    def pack(bits: str) -> bytes:
+        return int(bits, 2).to_bytes(len(bits) // 8, "big")
+
+    data = (pack(head + "1" * fill) + np.full(whole, 0xFF, np.uint8).tobytes()
+            + pack(end))
+    return data, 1 + 8 + 15 * nibbles + 3
+
+
+def repeated_sha256(n: int, tail: bytes) -> str:
+    """The SHA-256 of n a's and then ``tail``, fed from one numpy chunk."""
+    chunk = np.full(1 << 26, ord("a"), np.uint8)
+    h = hashlib.sha256()
+    for s in range(0, n, len(chunk)):
+        h.update(chunk[:min(len(chunk), n - s)])
+    h.update(tail)
+    return h.hexdigest()
+
+
+def long_token_drive(device: torch.device, card: str) -> None:
+    """The long token's file through the CLI's raw decode on the card:
+    its length, ends and SHA-256 against the bytes that the copy rule
+    gives (built with numpy, no decoder), and its wall, input windows,
+    peak device memory and launches of the raw decoder's kernels
+    printed. Its kernel calls are not recorded in phase 3: its input
+    windows take the big raw file's spans (one row of _WIN + _MARGIN
+    bytes) and its output windows rows of 2^18 bytes, as the big file's
+    do."""
+    data, n = long_token_file(LONG_NIBBLES)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    launched = _kernels.launch_counts()
+    t0 = time.perf_counter()
+    out, windows = windows_taken(
+        lambda: cli._decompress_raw_device(data, device))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - before
+    counts = _kernels.launch_counts()
+    if len(out) != n + 1 or out[:1] != b"a" or out[-2:] != b"ab":
+        raise AssertionError(f"cli decompress long token: {len(out)} bytes, "
+                             f"not {n + 1}, or its ends differ")
+    digest = hashlib.sha256(out).hexdigest()
+    if digest != repeated_sha256(n, b"b"):
+        raise AssertionError("cli decompress long token: sha256 differs")
+    del out
+    idle = [k for k in RAW_KERNELS if counts[k] == launched[k]]
+    if idle:
+        raise AssertionError(f"cli decompress long token: {idle} did not "
+                             f"launch")
+    log("cli", f"decompress long token: {len(data)} bytes in (a run of "
+        f"{LONG_NIBBLES} extension nibbles), {n + 1} bytes out, sha256 "
+        f"{digest[:16]}... == the copy rule's; {windows} input windows of "
+        f"{bitpar._WIN} bytes, wall {dt:.3f} s ({(n + 1) / dt / 1e6:.4f} "
+        f"MB/s of output, host clock), peak device memory "
+        f"{peak / 2**30:.3f} GiB over what was allocated before it (its "
+        f"input included), on {card}; launches "
+        + ", ".join(f"{k}={counts[k] - launched[k]}" for k in RAW_KERNELS))
+
+
 def windows_taken(fn):
     """fn()'s result and the input windows it took (calls of
     ``bitpar._heads``, one a window)."""
@@ -1325,16 +1410,19 @@ def _route(stderr: str) -> str:
                 if line.startswith("route: "))
 
 
-def phase_cli(data: bytes, device: torch.device, native) -> dict[str, int]:
+def phase_cli(data: bytes, device: torch.device, native,
+              card: str) -> dict[str, int]:
     """The CLI in this process on temporary files under build/ (counters
     reset just before): every output checked against the C codec or the
-    input, each call's host-clock MB/s and route printed (information)."""
+    input, each call's host-clock MB/s and route printed (information),
+    then the long token's raw decode."""
     native_compress, native_decompress = native
     with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
         work = pathlib.Path(tmp)
         torch.cuda.synchronize()
         _kernels.reset_launches()
         calls, big = cli_drive(data, work, device, native)
+        long_token_drive(device, card)
         torch.cuda.synchronize()
         counts = _kernels.launch_counts()
         raw = (work / "raw.lzs").read_bytes()
@@ -1506,7 +1594,7 @@ def phase_corrupt(blob: bytes, codec: BlockCodec) -> None:
 
 
 def main() -> None:
-    phase_device()
+    card = phase_device()
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     data = make_corpus(SIZE)
@@ -1526,7 +1614,7 @@ def main() -> None:
     counts["stream"], counts["stream_block"] = phase_stream(data, device,
                                                             native)
     counts["coders"] = phase_coders(data, device, native)
-    counts["cli"] = phase_cli(data, device, native)
+    counts["cli"] = phase_cli(data, device, native, card)
     counts["dist"] = phase_dist(data, device)
     phase_counts(counts)
     phase_corrupt(blob, codec)

@@ -39,11 +39,15 @@ the output before it as literal records, since a copy reaches at most
 An input wider than ``_WIN`` bytes (padded), or an out_cap past 2^18,
 decodes in windows of the input (``_window_loop``), so any input width
 decodes: each window runs steps 1-4 on a span of each row from the row's
-entry head, and keeps the heads that the span decides (``_final``); the
-first head it cannot decide is the next window's entry. Each span's sums
-stay in int32 (``MAX_WIDE_INPUT``). ``decode_to_host`` runs the same
-loop with no output capacity and appends each window's output on the
-host (the CLI's raw decode).
+entry head, at most ``_WIN + _MARGIN`` bytes, and keeps the heads that
+the span decides (``_final``); the first head it cannot decide is the
+next window's entry. A head whose run of extension nibbles passes the
+span is cut there (``_cut``): the window emits the copy up to the cut,
+and the next one enters the run at the cut, so a token of any length
+decodes, one record a window, and each span's sums stay in int32
+(``MAX_WIDE_INPUT``). ``decode_to_host`` runs the same loop with no
+output capacity and appends each window's output on the host (the
+CLI's raw decode).
 """
 
 from __future__ import annotations
@@ -66,9 +70,10 @@ _ROW = MAX_OUT_CAP
 #: copy reaches at most 2047 bytes back
 _HIST = 2048
 #: the widest span of input bytes that one pass of the per-bit parse
-#: reads: its token lengths (at most 15 output bytes per 4 input bits,
+#: may read: its token lengths (at most 15 output bytes per 4 input bits,
 #: and 8 per head of 9 bits or more: 30 bytes an input byte) then sum
-#: below 2^31
+#: below 2^31. A window's span, ``_WIN + _MARGIN`` bytes at most, is
+#: held to it
 MAX_WIDE_INPUT = 1 << 26
 #: the widest out_cap of engine "bits"
 MAX_WIDE_OUT_CAP = 1 << 30
@@ -81,7 +86,10 @@ MAX_WIDE_OUT_CAP = 1 << 30
 _WIN = 1 << 23
 #: input bytes a window reads past its new bytes: a head that starts in
 #: the new bytes is decided there if its successor lies inside the span
+#: (8 or more, so that every head but a long run's is, see ``_cut``)
 _MARGIN = 1 << 12
+#: the fewest 15-nibbles that a cut run keeps in its span past the cut
+_CUT_KEEP = 3
 #: a window's output length when nothing caps it (int32's largest)
 _NO_CAP = (1 << 31) - 1
 
@@ -132,11 +140,18 @@ def _bit_windows(comp: torch.Tensor, cpad: int) -> torch.Tensor:
 
 
 def _heads(comp: torch.Tensor, inbits: torch.Tensor, nbits: int,
-           out_cap: int, multi_stream: bool):
+           out_cap: int, multi_stream: bool, carry=None):
     """Per-bit speculative heads. Returns (delta int32[B, nbits] bits to
     the successor head, head_ok bool[B, nbits] the head fits the input,
     length int32[B, nbits] its output bytes (0 for an end marker), low
-    int32[B, nbits] is_copy << 11 | payload, 0 for an end marker)."""
+    int32[B, nbits] is_copy << 11 | payload, 0 for an end marker).
+
+    carry: None, or (bit int32[B], offset int32[B]): where offset >= 0,
+    the row's head at ``bit`` continues a copy of that offset whose run
+    of extension nibbles an earlier input window cut there
+    (``_window_loop``). It has no fields of its own (need 0, len_init 0):
+    its chain starts at the bit itself, so its length is the chain's sum
+    there and its successor lies past the chain."""
     b = comp.shape[0]
     cpad = nbits // 8
     t = torch.arange(nbits, dtype=_I32, device=comp.device)[None, :]
@@ -157,6 +172,9 @@ def _heads(comp: torch.Tensor, inbits: torch.Tensor, nbits: int,
         g.reshape(b, q4, 4).transpose(1, 2)).transpose(1, 2).reshape(
             b, nbits)
     del a_len, g
+    if carry is not None:
+        at = carry[0][:, None].long()
+        ext_at = ext_pack.gather(1, at)
 
     # head fields at every bit (lzs-decompression.c:214-343)
     is_lit = ((w >> 31) & 1) == 0
@@ -188,7 +206,17 @@ def _heads(comp: torch.Tensor, inbits: torch.Tensor, nbits: int,
     delta = (succ - t).clamp(min=1)
     payload = torch.where(is_lit, lit, torch.where(short_off, off7, off11))
     low = (is_match.to(_I32) << 11) | payload
-    return delta.to(_I32), head_ok, length.to(_I32), low.to(_I32)
+    delta, length, low = delta.to(_I32), length.to(_I32), low.to(_I32)
+    if carry is not None:
+        on = carry[1][:, None] >= 0
+        for field, value in (
+                (delta, 4 * (ext_at // 15 + 1)),
+                (head_ok, at <= inbits),
+                (length, ext_at.clamp(max=out_cap)),
+                (low, (1 << 11) | carry[1][:, None])):
+            field.scatter_(1, at, torch.where(on, value.to(field.dtype),
+                                              field.gather(1, at)))
+    return delta, head_ok, length, low
 
 
 def _check_out_cap(out_cap: int) -> None:
@@ -371,37 +399,96 @@ def _final(t: torch.Tensor, delta: torch.Tensor, head_ok: torch.Tensor,
     return fin | ends_in[:, None]
 
 
+def _cut(first: torch.Tensor, new: int, delta: torch.Tensor,
+         length: torch.Tensor, low: torch.Tensor, head_ok: torch.Tensor,
+         carried: torch.Tensor):
+    """Where a window cuts its entry head, if it cannot decide it.
+
+    Such an entry's run of 15-nibbles passes the span (with a margin of 8
+    bytes or more, nothing else leaves it undecided): it is a copy with
+    length code 1111 (len_init 8), or a continuation (``carried``,
+    len_init 0), whose chain starts at ``first`` plus the head's width
+    (none for a continuation) and holds ``runs`` 15-nibbles in the span
+    (its length is len_init + 15 * runs + the nibble that ends the chain
+    as read). The cut is a nibble boundary of the chain at or before bit
+    8 * new (one nibble into the chain where the window's new bytes end
+    before the chain starts): the entry emits len_init + 15 per nibble
+    before it, and the next window's entry is the cut, a continuation of
+    the same offset.
+
+    Slot compaction: ``_slots`` keeps one head per 9 bits, and the
+    continuation at bit ``first`` (< 8) of the next span has its
+    successor 4 * (k + 1) bits on, k its 15-nibbles: one nibble and its
+    end would put it in the same slot. The cut leaves ``_CUT_KEEP`` 15-
+    nibbles of the span after it (the successor then lies 16 bits on or
+    more). An entry is undecided only where its chain ends within 36 bits
+    of the span's end, so a margin of 8 bytes or more leaves that many;
+    ``ok`` is False where the entry is no such copy or leaves fewer.
+
+    Returns (the cut's bit, the entry's length before it, the entry's
+    offset, ok), int32/bool[B].
+    """
+    f = first[:, None].long()
+    d, n, lo, fits = (x.gather(1, f)[:, 0] for x in (delta, length, low,
+                                                       head_ok))
+    init = torch.where(carried, 0, 8).to(_I32)
+    runs = (n - init) // 15
+    start = first + d - 4 * (runs + 1)
+    take = ((8 * new - start) // 4).clamp(min=1)
+    ok = (fits & (lo >> 11 == 1) & (n >= init)
+          & (runs - take >= _CUT_KEEP))
+    return start + 4 * take, init + 15 * take, lo & 0x7FF, ok
+
+
 def _window_loop(comp: torch.Tensor, inbytes: list[int], cap: int | None,
                  multi_stream: bool, emit) -> tuple[list[int], list[int]]:
     """Decode the rows of comp (uint8/int32[B, C]) in windows of the
     input; returns the rows' (out_len, end_markers) as host ints.
 
     Each row carries its entry head's absolute bit (bit 0 first), its
-    output base and its marker count on the host. A window takes the
+    output base, its marker count and, where its entry continues a
+    token, that copy's offset (else -1) on the host. A window takes the
     rows still decoding, ``_WIN`` new bytes over them, and reads each
-    row's span from its entry's byte: steps 1-4 of the module docstring
-    on the span (the walk from the entry's bit in that byte), of which
-    ``_final``'s heads make the window's records, their output offsets
-    local cumsums (K9). ``emit(rows, base, opos, length, low, kept,
-    lens)`` then expands them (``lens``: each row's output bytes, the
-    records' total cut at what is left of ``cap``; None: no cap). A row
-    is done when its chain ends in a window or its output reaches cap.
-    A window that decides no head of some row (its entry's run of
-    extension nibbles passes the span) is taken again with twice the new
-    bytes, up to spans of ``MAX_WIDE_INPUT``.
+    row's span from its entry's byte, at most ``_MARGIN`` bytes past the
+    new ones: steps 1-4 of the module docstring on the span (the walk
+    from the entry's bit in that byte), of which ``_final``'s heads make
+    the window's records, their output offsets local cumsums (K9).
+    ``emit(rows, base, opos, length, low, kept, lens)`` then expands them
+    (``lens``: each row's output bytes, the records' total cut at what
+    is left of ``cap``; None: no cap). A row is done when its chain ends
+    in a window or its output reaches cap.
+
+    An entry whose run of extension nibbles passes the span is cut
+    (``_cut``): the window emits the part before the cut as a copy
+    record, and the next window enters the run at the cut. A token of
+    any length thus becomes one record per window, each of whose sums
+    stays in int32, and its total lives only in the host's ``base``. A
+    continuation's record starts at the next window's output base, which
+    the expansion reads from the ``_HIST`` bytes before it: a copy of
+    offset d is d-periodic, so the restart is exact (d < ``_HIST``).
+    Where the input ends in the run (``ends_in``), the window decides
+    the entry as one pass does: len_init (none for a continuation) plus
+    its whole nibbles, and the chain ends. An end marker after a
+    continued token jumps to the byte boundary one pass jumps to, and
+    the next stream starts there: a span starts at a byte of the input. Under a cap, an entry whose
+    cut run already fills what is left is decided as it stands
+    (``_final``). A window that decides no head of a row and cannot cut
+    its entry is a fault of this loop: it raises.
     """
+    assert _MARGIN >= 8, "a span's margin must hold an entry's successor"
     b, c0 = comp.shape
     dev = comp.device
     # the bytes a row's walk reads: as in one pass over the padded input
     ends = [min(n, _padded(c0)) for n in inbytes]
     entry, base, markers = [0] * b, [0] * b, [0] * b
+    carry = [-1] * b
     active = [r for r in range(b) if ends[r] > 0]
-    width = _WIN
     while active:
-        new = max(width // len(active), 1)
+        new = max(_WIN // len(active), 1)
         at = [entry[r] >> 3 for r in active]
-        span = min(new + _MARGIN, MAX_WIDE_INPUT,
+        span = min(new + _MARGIN,
                    max(ends[r] - e for r, e in zip(active, at)))
+        assert span <= MAX_WIDE_INPUT, "a span's sums leave int32"
         nbits = span * 8
         rows = torch.stack([F.pad(comp[r, e:e + span],
                                   (0, span - max(min(c0 - e, span), 0)))
@@ -410,17 +497,21 @@ def _window_loop(comp: torch.Tensor, inbytes: list[int], cap: int | None,
                 for r in active]
         # per row: its input bits from the span's start (past the span
         # read as going on), the walk's length, the entry's bit, what is
-        # left of the output, and whether the row ends in the span
+        # left of the output, whether the row ends in the span, and the
+        # offset of the copy that its entry continues (-1: none)
         per = torch.tensor(
             [[8 * min(inbytes[r] - e, span + 4), 8 * min(ends[r] - e, span),
-              entry[r] & 7, lf, int(ends[r] - e <= span)]
+              entry[r] & 7, lf, int(ends[r] - e <= span), carry[r]]
              for r, e, lf in zip(active, at, left)],
             dtype=_I32).to(dev)
-        inbits, nwalk, first, lefts, ends_in = per.unbind(1)
+        inbits, nwalk, first, lefts, ends_in, offset = per.unbind(1)
+        carried = offset >= 0
         with trace.stage("heads"):
             delta, head_ok, length, low = _heads(
                 rows, inbits[:, None], nbits,
-                _NO_CAP if cap is None else cap, multi_stream)
+                _NO_CAP if cap is None else cap, multi_stream,
+                (first, offset) if any(carry[r] >= 0 for r in active)
+                else None)
             del rows
         with trace.stage("walk"):
             # the walk starts at bit 0: its first step goes to the entry
@@ -434,9 +525,19 @@ def _window_loop(comp: torch.Tensor, inbytes: list[int], cap: int | None,
             del heads
             fin = _final(t, delta, head_ok, length, nbits, new, first,
                          lefts, ends_in.bool())
-            del delta
-            # the next window's entry: the first head not decided here
+            # the next window's entry: the first head not decided here,
+            # or the cut of an entry that the span cannot decide, which
+            # the window then emits up to the cut
             nxt = torch.where(orbit & ~fin, t, nbits).amin(dim=1)
+            stuck = nxt == first
+            cut, part, off, ok = _cut(first, new, delta, length, low,
+                                      head_ok, carried)
+            del delta
+            f = first[:, None].long()
+            length.scatter_(1, f, torch.where(
+                stuck, part, length.gather(1, f)[:, 0])[:, None])
+            fin.scatter_(1, f, stuck[:, None] | fin.gather(1, f))
+            nxt = torch.where(stuck, cut, nxt)
             valid_s, len_s, low_s = _slots(orbit & fin & head_ok, length,
                                            low, nbits, _slot_width(nbits))
             del orbit, fin, head_ok, length, low
@@ -444,24 +545,25 @@ def _window_loop(comp: torch.Tensor, inbytes: list[int], cap: int | None,
             total = opos[:, -1] + len_s[:, -1]
             kept = valid_s & (opos < lefts[:, None])
             mk = (kept & (len_s == 0) & (low_s == 0)).sum(dim=1, dtype=_I32)
-            got = torch.stack([nxt, torch.minimum(total, lefts), mk],
+            got = torch.stack([nxt, torch.minimum(total, lefts), mk,
+                               torch.where(stuck, off, -1),
+                               (ok | ~stuck).to(_I32)],
                               dim=1).tolist()
         emit(active, [base[r] for r in active], opos, len_s, low_s, kept,
              [g[1] for g in got])
-        still, stuck = [], False
-        for r, e, (nx, n, m) in zip(active, at, got):
+        still = []
+        for r, e, (nx, n, m, off, good) in zip(active, at, got):
+            if not good:
+                raise RuntimeError(
+                    f"internal: the input window at byte {e} decided no "
+                    f"head of row {r} and cannot cut its entry")
             base[r] += n
             markers[r] += m
             if nx == nbits or (cap is not None and base[r] >= cap):
                 continue
-            stuck |= nx == entry[r] - 8 * e
             entry[r] = 8 * e + nx
+            carry[r] = off
             still.append(r)
-        if stuck and span == MAX_WIDE_INPUT:
-            raise ValueError(
-                f"a token's extension nibbles run past {MAX_WIDE_INPUT} "
-                f"input bytes: its length leaves int32")
-        width = 2 * width if stuck else _WIN
         active = still
     return base, markers
 
@@ -499,7 +601,9 @@ def decode_to_host(comp: torch.Tensor, *, multi_stream: bool = False
         buf = torch.cat([hist, hist.new_zeros((1, lens[0]))], dim=1)
         _expand_windows(opos, length, low, kept, lens, buf, [0], [_HIST])
         parts.append(buf[0, _HIST:].cpu().numpy().tobytes())
-        hist = buf[:, -_HIST:]
+        # a copy: a view would hold the window's whole output on the
+        # device through the next window
+        hist = buf[:, -_HIST:].clone()
 
     _window_loop(comp.reshape(1, -1), [comp.numel()], None, multi_stream,
                  emit)

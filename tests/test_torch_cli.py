@@ -165,9 +165,10 @@ def test_cli_device_route_past_16x(tmp_path, monkeypatch, no_host_decode):
     assert sum(lens) == len(data) > 16 * len(comp)
 
 
-def _windows(monkeypatch, win: int) -> list[int]:
-    """Cut the raw decoder's input window to ``win`` bytes; the spans of
-    the windows it takes are appended to the list returned."""
+def _windows(monkeypatch, win: int, margin: int = 256) -> list[int]:
+    """Cut the raw decoder's input window to ``win`` bytes behind
+    ``margin``; the spans of the windows it takes are appended to the
+    list returned."""
     spans = []
     heads = bitpar._heads
 
@@ -176,7 +177,7 @@ def _windows(monkeypatch, win: int) -> list[int]:
         return heads(comp, *args, **kw)
 
     monkeypatch.setattr(bitpar, "_WIN", win)
-    monkeypatch.setattr(bitpar, "_MARGIN", 256)
+    monkeypatch.setattr(bitpar, "_MARGIN", margin)
     monkeypatch.setattr(bitpar, "_heads", spy)
     return spans
 
@@ -209,6 +210,31 @@ def test_cli_raw_past_max_wide_out_cap(tmp_path, monkeypatch,
     assert back == DATA
     assert "route: device\n" in err
     assert len(spans) > 1
+
+
+@pytest.mark.parametrize("offset", [1, 200, 2047])
+def test_cli_long_token_equals_jax_cli(tmp_path, monkeypatch,
+                                       no_host_decode, offset):
+    """A raw file that is one long copy (a run of 400 15-nibbles, some 3
+    of the raw decoder's input windows, cut to 64 new bytes behind 16 of
+    margin), short and long offsets: the port's CLI decodes it on the
+    device, each window's share of the run a record of its own, to the
+    bytes of the JAX package's CLI and of the copy rule. At offset 1
+    (one literal before the copy) the output passes 16 times the input,
+    where JAX's CLI decodes on its host decoder."""
+    from lzs_tpu import cli as jcli
+    from test_torch_rawdecode import long_token
+
+    spans = _windows(monkeypatch, 64, 16)
+    comp, want = long_token(offset, 400, 3, 3)
+    back, err = decompress(tmp_path, comp)
+    assert "route: device\n" in err
+    src, dst = tmp_path / "jax.in", tmp_path / "jax.out"
+    src.write_bytes(comp)
+    assert jcli.main(["decompress", str(src), str(dst)]) == 0
+    assert back == dst.read_bytes() == want
+    assert (len(want) > 16 * len(comp)) == (offset == 1)
+    assert max(spans) <= 64 + 16 and len(spans) > len(comp) // 80
 
 
 def test_cli_device_errors_propagate(tmp_path, monkeypatch):

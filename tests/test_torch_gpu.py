@@ -41,7 +41,8 @@ CPU and the C encoder. The codec profiles' match tables (windows 2047,
 2174, 4095) and far-offset tokens equal the CPU's on the card; the raw
 decoder's windows past 2^18 output bytes equal the CPU and the input;
 the CLI's raw decode takes the device route at every size, a raw file
-past 2^25 bytes of input included (windows of the input); and
+past 2^25 bytes of input included (windows of the input), and a token
+whose run of extension nibbles spans some 2.5 input windows; and
 DistributedCodec on an NCCL world of one equals BlockCodec.
 """
 
@@ -1414,6 +1415,44 @@ def test_raw_file_past_2_25_on_card(cuda, tmp_path):
         assert cli.main(["decompress", "-v", str(src), str(out)]) == 0
     assert out.read_bytes() == want
     assert "route: device\n" in err.getvalue()
+
+
+def test_long_token_on_card(cuda, tmp_path):
+    """A raw file of one copy of offset 1 whose run of 15-nibbles spans
+    some 2.5 input windows (5 * 2^23 nibbles: 20 MiB in, 629 MB out)
+    decodes on the card through cli.main, each window cutting the run,
+    and through decode_batch_bits at an out_cap inside the token: the
+    copy rule's bytes, over windows that launch the walk (K11-K13), the
+    chained scans (K7-K9) and the expansion (K17)."""
+    import contextlib
+    import io
+
+    from chip_smoke import RAW_KERNELS, long_token_file
+    from lzs_tpu_torch import cli
+    from lzs_tpu_torch.ops import bitpar
+
+    data, n = long_token_file(5 << 23)
+    assert len(data) > 2 * bitpar._WIN + bitpar._MARGIN
+    src, out = tmp_path / "long.lzs", tmp_path / "long.out"
+    src.write_bytes(data)
+    err = io.StringIO()
+    _kernels.reset_launches()
+    with contextlib.redirect_stderr(err):
+        assert cli.main(["decompress", "-v", str(src), str(out)]) == 0
+    counts = _kernels.launch_counts()
+    assert out.read_bytes() == b"a" * n + b"b"
+    assert "route: device\n" in err.getvalue()
+    for name in RAW_KERNELS:
+        assert counts[name] >= 1, (name, counts[name])
+    assert counts["walk_entries"] >= 3
+    cap = 1 << 29
+    assert cap < n
+    comp = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    got, out_len, markers = bitpar.decode_batch_bits(
+        comp[None], torch.tensor([len(data)], dtype=torch.int32,
+                                 device=cuda), out_cap=cap)
+    assert got.shape == (1, cap) and bool((got == ord("a")).all())
+    assert out_len.tolist() == [cap] and markers.tolist() == [0]
 
 
 def test_distributed_codec_nccl_world_of_one(cuda, tmp_path):

@@ -18,8 +18,11 @@ windows: held to the one-row expansion with narrow windows, and to
 wider than ``bitpar._WIN`` decodes in windows of the input: held bitwise
 to the one-pass decode (``_WIN`` and ``_MARGIN`` cut to a few KiB or
 bytes) at batch >= 33 in both modes, on every window cut of a short
-chain, and where a run of extension nibbles longer than the span makes
-it grow; its bytes to ``lzs_tpu.reference`` and ``utils.native``'s C
+chain, and where a run of extension nibbles longer than the span is cut
+into a record a window (hand-built long tokens: short and long offsets,
+every bit phase, three terminators, every truncation across two window
+boundaries, batch 39, a margin of 8 bytes), no span wider than ``_WIN +
+_MARGIN``; its bytes to ``lzs_tpu.reference`` and ``utils.native``'s C
 decoder.
 """
 
@@ -346,11 +349,12 @@ def test_decode_past_2_18_equals_reference():
 
 def test_wide_input_bound_raises(monkeypatch):
     """The input is not bounded: past ``_WIN`` it decodes in windows at
-    any out_cap (a window's span, at most ``MAX_WIDE_INPUT`` bytes, keeps
-    its sums in int32). The one thing that raises is a token whose run
-    of extension nibbles passes that span where no out_cap cuts it
-    (``decode_to_host``); under an out_cap the token's head fills the
-    output, which ends the decode."""
+    any out_cap (a window's span, at most ``_WIN + _MARGIN`` bytes, is
+    held to ``MAX_WIDE_INPUT``, which keeps its sums in int32). A token
+    whose run of extension nibbles passes the span decodes too, cut into
+    one record a window, where no out_cap cuts it (``decode_to_host``)
+    as under an out_cap (the token's head fills the output, which ends
+    the decode)."""
     monkeypatch.setattr(bitpar, "_WIN", 256)
     monkeypatch.setattr(bitpar, "_MARGIN", 64)
     zeros = native.compress(bytes(15000))
@@ -362,9 +366,9 @@ def test_wide_input_bound_raises(monkeypatch):
         assert not out.any()
         assert list(markers) == [int(out_cap > 15000), 0]
     monkeypatch.setattr(bitpar, "MAX_WIDE_INPUT", 320)
-    with pytest.raises(ValueError, match="int32"):
-        bitpar.decode_to_host(torch.from_numpy(np.frombuffer(
-            zeros, np.uint8).copy()))
+    assert bitpar.decode_to_host(torch.from_numpy(np.frombuffer(
+        zeros, np.uint8).copy())) == ref.lzs_decompress(zeros) == bytes(
+            15000)
     got = _port(buf, lens, out_cap=5000)
     assert list(got[1]) == [5000, 0] and not got[0].any()
 
@@ -429,8 +433,9 @@ def test_block_codec_decode_batch_raw_matches_jax():
     assert torch.equal(again[0], out)
 
 
-def _in_windows(monkeypatch, win, margin, fn):
-    """fn() with ``_WIN`` and ``_MARGIN`` cut to ``win`` and ``margin``,
+def _in_windows(monkeypatch, win, margin, fn, row=None):
+    """fn() with ``_WIN`` and ``_MARGIN`` cut to ``win`` and ``margin``
+    (and ``_ROW``, the output's expansion windows, to ``row`` if given),
     and the spans of the windows it took (``_heads``' widths)."""
     spans = []
     heads = bitpar._heads
@@ -443,6 +448,8 @@ def _in_windows(monkeypatch, win, margin, fn):
         m.setattr(bitpar, "_WIN", win)
         m.setattr(bitpar, "_MARGIN", margin)
         m.setattr(bitpar, "_heads", spy)
+        if row is not None:
+            m.setattr(bitpar, "_ROW", row)
         return fn(), spans
 
 
@@ -519,10 +526,11 @@ def test_every_window_cut_equals_one_pass(monkeypatch):
 @pytest.mark.parametrize("out_cap", [100, 5000, 14999, 20000])
 def test_nibble_run_past_the_span_grows_it(monkeypatch, out_cap):
     """15000 zeros are one copy whose run of 15-nibbles (some 500 bytes)
-    is longer than a window's span (64 + 16 bytes): the window that
-    decides no head takes twice the new bytes until it does, or until
-    the cut chain already fills the out_cap. Bitwise the one-pass
-    decode and the reference's bytes."""
+    is longer than a window's span (64 + 16 bytes): no span grows past
+    it; the window cuts the run, emits the copy up to the cut, and the
+    next one goes on from there, until the run ends or the cut chain
+    already fills the out_cap. Bitwise the one-pass decode and the
+    reference's bytes."""
     stream = native.compress(bytes(15000))
     buf, lens = _batch([stream])
     want = _port(buf, lens, out_cap=out_cap)
@@ -530,8 +538,10 @@ def test_nibble_run_past_the_span_grows_it(monkeypatch, out_cap):
                              lambda: _port(buf, lens, out_cap=out_cap))
     _assert_equal(got, want)
     assert got[0][0, :got[1][0]].tobytes() == bytes(min(out_cap, 15000))
-    grew = [s for s in spans if s > 64 + 16]
-    assert bool(grew) == (out_cap > 2400)
+    assert max(spans) <= 64 + 16
+    # a window emits at most 30 bytes an input byte of its span: the
+    # run is cut into a record a window
+    assert len(spans) >= -(-min(out_cap, 15000) // (30 * (64 + 16)))
 
 
 def test_decode_to_host_equals_reference(monkeypatch):
@@ -553,3 +563,210 @@ def test_decode_to_host_equals_reference(monkeypatch):
                                               device="cpu")
             windows.append(len(spans))
     assert max(windows) > 10
+
+
+def long_token(offset: int, nibbles: int, term: int, lead: int = 0,
+               history: int | None = None,
+               tail: bytes = b"b") -> tuple[bytes, bytes]:
+    """A raw stream that is one long copy, and the bytes it decodes to.
+
+    ``history`` seeded literals (default ``offset``: the copy reads
+    them), ``lead`` more (each moves the run's bit phase by one), a copy
+    of ``offset`` (short form below 128) with length code 1111, then
+    ``nibbles`` extension nibbles of 15 and ``term``, the literals of
+    ``tail`` and an end marker. The token is 8 + 15 * nibbles + term
+    bytes, each the byte ``offset`` back (zero before the stream's
+    start): the bytes come from that rule, not from a decoder."""
+    n = offset if history is None else history
+    lits = np.random.default_rng(offset).integers(
+        0, 256, n + lead, dtype=np.uint8).tobytes()
+    w = ref.BitWriter()
+    for c in lits:
+        w.put(c, 9)
+    if offset <= spec.SHORT_OFFSET_MAX:
+        w.put(0b11 << 7 | offset, 9)
+    else:
+        w.put(0b10 << 11 | offset, 13)
+    w.put(0b1111, 4)
+    for _ in range(nibbles):
+        w.put(spec.MAX_EXTENDED_LENGTH, 4)
+    w.put(term, 4)
+    for c in tail:
+        w.put(c, 9)
+    w.put(spec.END_MARKER_VALUE, spec.END_MARKER_BITS)
+    w.pad_to_byte()
+    src = (bytes(offset) + lits)[-offset:]
+    size = 8 + 15 * nibbles + term
+    want = lits + (src * (size // offset + 1))[:size] + tail
+    return w.getvalue(), want
+
+
+def _carried_steps(monkeypatch) -> list[int]:
+    """Spy on ``bitpar._heads``: the bits from each continuation head (a
+    run that an earlier window cut) to its successor, 4 per nibble."""
+    steps = []
+    heads = bitpar._heads
+
+    def spy(comp, inbits, nbits, out_cap, multi_stream, carry=None):
+        got = heads(comp, inbits, nbits, out_cap, multi_stream, carry)
+        if carry is not None:
+            at, off = carry
+            step = got[0].gather(1, at[:, None].long())[:, 0]
+            steps.extend(step[off >= 0].tolist())
+        return got
+
+    monkeypatch.setattr(bitpar, "_heads", spy)
+    return steps
+
+
+#: the long-token tests' windows: new bytes, margin, and output
+#: expansion windows (``_ROW``; their plain expansion is the CPU's cost)
+_LW, _LM, _LROW = 256, 64, 4096
+
+
+def _host(monkeypatch, stream: bytes, multi: bool, win: int = _LW,
+          margin: int = _LM):
+    """``decode_to_host`` of ``stream`` in windows of ``win`` new bytes
+    behind ``margin``, and its spans."""
+    return _in_windows(monkeypatch, win, margin, lambda: bitpar.decode_to_host(
+        torch.from_numpy(np.frombuffer(stream, np.uint8).copy()),
+        multi_stream=multi), row=_LROW)
+
+
+def _batch_windows(monkeypatch, buf, lens, out_cap, multi=False,
+                   win=_LW, margin=_LM):
+    """``decode_batch_bits`` of the batch in windows of ``win`` new bytes
+    a row (the rows padded past ``_WIN``, so that the input windows
+    run), and its spans."""
+    b = len(lens)
+    wide = np.pad(buf, ((0, 0), (0, max(win * b + 1 - buf.shape[1], 0))))
+    return _in_windows(monkeypatch, win * b, margin,
+                       lambda: _port(wide, lens, out_cap=out_cap,
+                                     multi_stream=multi), row=_LROW)
+
+
+@pytest.mark.parametrize("windows", [1, 2, 5])
+@pytest.mark.parametrize("offset", [1, 7, 127, 128, 2047])
+def test_long_token_decodes(monkeypatch, offset, windows):
+    """A copy whose run of 15-nibbles spans 1, 2 or 5 input windows (256
+    new bytes behind 64 of margin), short and long offset forms, at
+    every bit phase of the run (0-7 leading literals) and terminators 0,
+    3 and 14: ``decode_to_host`` gives the C decoder's, the reference's
+    and the copy rule's bytes, one record a window, no span wider than
+    ``_WIN + _MARGIN``; ``decode_batch_bits`` over the 24 rows, in
+    windows, equals the one-pass decode bitwise at out_caps inside every
+    token, at the end of one and past every output."""
+    nibbles = 2 * windows * _LW - 37
+    steps = _carried_steps(monkeypatch)
+    streams, wants = [], []
+    for term in (0, 3, 14):
+        for lead in range(8):
+            stream, want = long_token(offset, nibbles, term, lead)
+            assert ref.lzs_decompress(stream) == want
+            assert native.decompress(stream, out_cap=len(want) + 64,
+                                     multi_stream=True) == want
+            got, spans = _host(monkeypatch, stream, bool(lead & 1))
+            assert got == want
+            assert max(spans) <= _LW + _LM
+            assert len(spans) > len(stream) // (_LW + _LM)
+            streams.append(stream)
+            wants.append(want)
+    # a run of w windows is cut w - 1 times or more
+    assert len(steps) >= len(streams) * (windows - 1)
+    buf, lens = _batch(streams)
+    for out_cap in (offset + 8 + 15 * nibbles // 2, len(wants[0]) - 1,
+                    max(map(len, wants)) + 64):
+        want = _port(buf, lens, out_cap=out_cap)
+        got, spans = _batch_windows(monkeypatch, buf, lens, out_cap)
+        _assert_equal(got, want)
+        assert max(spans) <= _LW * len(lens) + _LM
+        for i, w in enumerate(wants):
+            assert got[0][i, :got[1][i]].tobytes() == w[:out_cap]
+
+
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+def test_long_token_every_truncation(monkeypatch, lead):
+    """A run cut by the input's end at every byte across two window
+    boundaries (64 new bytes behind 16 of margin), its end 0-3 bits into
+    a nibble (``lead`` moves the run's phase): the one-pass semantics,
+    len_init plus the run's whole nibbles, then the chain ends.
+    ``decode_to_host`` (multi-stream on odd cuts) gives the C decoder's
+    bytes and the one-pass decode's; ``decode_batch_bits`` of every cut,
+    in windows, equals the one-pass decode bitwise."""
+    stream, _ = long_token(7, 2 * 4 * 64, 3, lead)
+    cuts = list(range(56, 150))
+    rows = [stream[:n] for n in cuts]
+    buf, lens = _batch(rows)
+    for out_cap in (1000, 1 << 16):
+        want = _port(buf, lens, out_cap=out_cap)
+        got, spans = _batch_windows(monkeypatch, buf, lens, out_cap,
+                                    win=64, margin=16)
+        _assert_equal(got, want)
+        assert max(spans) <= 64 * len(rows) + 16
+    for i, row in enumerate(rows):
+        multi = bool(cuts[i] & 1)
+        got, spans = _host(monkeypatch, row, multi, 64, 16)
+        assert got == native.decompress(row, out_cap=1 << 16,
+                                        multi_stream=multi)
+        assert got == want[0][i, :want[1][i]].tobytes()
+        assert max(spans) <= 64 + 16
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_long_tokens_in_a_batch_equal_one_pass(monkeypatch, rows37, multi):
+    """The batch of 37 rows and two long-token rows (runs over some 6
+    and 4 windows of 64 new bytes: 512 over 39 rows behind 64 of margin,
+    so both are cut while the other rows decode): bitwise the one-pass
+    decode (bytes, lengths, end markers) at out_caps inside a window's
+    output and past 2^18; each row's bytes are the JAX package's
+    decoders' (in multi-stream mode, the second token's row goes on
+    from the byte after its end marker into another stream)."""
+    streams = rows37[2] + [long_token(2047, 2 * 3 * _LW, 14, 5)[0],
+                           long_token(1, 2 * 2 * _LW, 0, 2)[0]
+                           + native.compress(b"the next stream")]
+    buf, lens = _batch(streams)
+    assert len(lens) >= 33
+    for out_cap in (2305, bitpar.MAX_OUT_CAP + 4096):
+        want = _port(buf, lens, out_cap=out_cap, multi_stream=multi)
+        got, spans = _in_windows(
+            monkeypatch, 512, 64,
+            lambda: _port(buf, lens, out_cap=out_cap, multi_stream=multi))
+        _assert_equal(got, want)
+        assert max(spans) <= 512 + 64
+    for i, st in enumerate(streams):
+        assert got[0][i, :got[1][i]].tobytes() == _decoded(st, multi)
+
+
+@pytest.mark.parametrize("offset", [1, 2047])
+def test_long_token_tiny_margin(monkeypatch, offset):
+    """Slot compaction: ``_slots`` keeps one head per 9 bits, so a cut
+    leaves its continuation three 15-nibbles or more before its end (the
+    successor 16 bits on). With ``_MARGIN`` at its least, 8 bytes, and 1
+    new byte a window, a long-offset head (17 bits) at bit 4-7 of its
+    byte whose run holds four 15-nibbles is cut with exactly three left:
+    at every bit phase and runs of 4, 5 and 60 nibbles (16 literals
+    after the token, so that the row goes on past the span),
+    ``decode_to_host`` and ``decode_batch_bits`` give the copy rule's
+    bytes, and no continuation steps less than 16 bits (16 itself
+    occurs)."""
+    steps = _carried_steps(monkeypatch)
+    streams, wants = [], []
+    for nibbles in (4, 5, 60):
+        for lead in range(8):
+            stream, want = long_token(offset, nibbles, 3, lead, history=0,
+                                      tail=b"tail after token")
+            assert native.decompress(stream, out_cap=4096) == want
+            got, spans = _host(monkeypatch, stream, False, 1, 8)
+            assert got == want
+            assert max(spans) <= 1 + 8
+            streams.append(stream)
+            wants.append(want)
+    buf, lens = _batch(streams)
+    got, spans = _batch_windows(monkeypatch, buf, lens, 4096, win=1,
+                                margin=8)
+    _assert_equal(got, _port(buf, lens, out_cap=4096))
+    for i, w in enumerate(wants):
+        assert got[0][i, :got[1][i]].tobytes() == w
+    # the tight case: three 15-nibbles and the end nibble (a short-offset
+    # head, 13 bits, leaves four)
+    assert min(steps) == (16 if offset > spec.SHORT_OFFSET_MAX else 20)
