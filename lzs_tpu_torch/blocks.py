@@ -25,6 +25,7 @@ import zlib
 import numpy as np
 import torch
 
+from . import trace
 from .ops import decode as dec_ops
 from .ops import decode2 as dec2_ops
 from .ops import encode as enc_ops
@@ -121,30 +122,36 @@ class BlockCodec:
 
     # -- host-level byte APIs --
     def compress(self, data: bytes, container: bool = True) -> bytes:
-        x, lens = pad_blocks(data, self.block)
-        comp, clens, sbit, sout, nsync = self.encode_batch(
-            self._to_device(x), self._to_device(lens))
-        flat, total = concat_streams(comp, clens)
-        payload = flat[:int(total)].cpu().numpy().tobytes()
-        if not container:
-            return payload
-        clens_np = clens.cpu().numpy().astype(np.uint32)
-        nsync_np = nsync.cpu().numpy().astype(np.uint32)
-        sbit_np = sbit.cpu().numpy()
-        sout_np = sout.cpu().numpy()
-        # the per-block end sentinel (bit offset of the end marker) is
-        # the value the encoder stores in unused slots
-        endbits = sbit_np[:, -1].astype(np.uint32)
-        live = (np.arange(sbit_np.shape[1])[None, :]
-                < nsync_np[:, None].astype(np.int64))
-        recs_np = np.stack([sbit_np[live], sout_np[live]],
-                           axis=1).astype(np.uint32)
-        crc = zlib.adler32(payload) & 0xFFFFFFFF
-        flags = FLAG_LAZY if self.policy == "lazy" else 0
-        header = struct.pack(_HDR, MAGIC, VERSION, flags, self.span,
-                             self.block, len(clens_np), len(data), crc)
-        return (header + clens_np.tobytes() + nsync_np.tobytes()
-                + endbits.tobytes() + recs_np.tobytes() + payload)
+        with trace.host("pad"):
+            x, lens = pad_blocks(data, self.block)
+        with trace.host("copy_in"):
+            xt, nt = self._to_device(x), self._to_device(lens)
+        comp, clens, sbit, sout, nsync = self.encode_batch(xt, nt)
+        with trace.host("wait"):  # the boolean mask reads its count
+            flat, total = concat_streams(comp, clens)
+            nbytes = int(total)
+        with trace.host("copy_out"):
+            payload = flat[:nbytes].cpu().numpy().tobytes()
+            if not container:
+                return payload
+            clens_np = clens.cpu().numpy().astype(np.uint32)
+            nsync_np = nsync.cpu().numpy().astype(np.uint32)
+            sbit_np = sbit.cpu().numpy()
+            sout_np = sout.cpu().numpy()
+        with trace.host("container"):
+            # the per-block end sentinel (bit offset of the end marker) is
+            # the value the encoder stores in unused slots
+            endbits = sbit_np[:, -1].astype(np.uint32)
+            live = (np.arange(sbit_np.shape[1])[None, :]
+                    < nsync_np[:, None].astype(np.int64))
+            recs_np = np.stack([sbit_np[live], sout_np[live]],
+                               axis=1).astype(np.uint32)
+            crc = zlib.adler32(payload) & 0xFFFFFFFF
+            flags = FLAG_LAZY if self.policy == "lazy" else 0
+            header = struct.pack(_HDR, MAGIC, VERSION, flags, self.span,
+                                 self.block, len(clens_np), len(data), crc)
+            return (header + clens_np.tobytes() + nsync_np.tobytes()
+                    + endbits.tobytes() + recs_np.tobytes() + payload)
 
     def decompress(self, blob: bytes) -> bytes:
         """Decode a container blob.

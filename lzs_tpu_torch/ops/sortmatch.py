@@ -127,6 +127,13 @@ def _aligned(w: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return ((w[:, :, :-1] << sh) | (w[:, :, 1:] >> (32 - sh))) & 0xFFFFFFFF
 
 
+def _read(t: torch.Tensor) -> int:
+    """``int(t)`` of a one-element tensor, under the host span ``wait``:
+    the host blocks on the card's queue."""
+    with trace.host("wait"):
+        return int(t)
+
+
 def _probe_batch(x: torch.Tensor, n: torch.Tensor, doff: torch.Tensor,
                  active: torch.Tensor, cap: int) -> torch.Tensor:
     """Exact run extension at the active positions of every block.
@@ -156,7 +163,7 @@ def _probe_batch(x: torch.Tensor, n: torch.Tensor, doff: torch.Tensor,
 
     remaining = active
     length = torch.zeros((b, npos), dtype=torch.int32, device=dev)
-    while bool(remaining.any()):
+    while _read(remaining.any()):
         # lane keys i << 15 | doff carry the whole offset (off <= i <
         # 2^15): JAX's batch form keeps 11 bits, so its probes at offsets
         # past 2047 compare at 2047; its one-block form, which its CPU
@@ -190,7 +197,7 @@ def _probe_batch(x: torch.Tensor, n: torch.Tensor, doff: torch.Tensor,
 
         # tier 2: close long runs, one batch-wide offset per round
         while True:
-            d0 = int(torch.where(act, cdoff, _BIG).min())
+            d0 = _read(torch.where(act, cdoff, _BIG).min())
             if d0 == _BIG:
                 break
             eq = (x == torch.roll(x, d0, 1)) & (i >= d0) & (i < nq)

@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from .. import trace
 from ..blocks import concat_streams, pad_blocks
 from ..ops import decode2 as dec2_ops
 from ..ops import encode as enc_ops
@@ -118,10 +119,12 @@ def encode_sharded(mesh: DeviceMesh, *, span: int = enc_ops.SYNC_SPAN):
     device = _rank_device(mesh)
 
     def call(x, n):
-        outs = enc_ops.encode_batch_sync(_shard(x, rank, world, device),
-                                         _shard(n, rank, world, device),
-                                         span=span)
-        return tuple(_all_gather(o, group) for o in outs)
+        with trace.host("copy_in"):
+            xs = _shard(x, rank, world, device)
+            ns = _shard(n, rank, world, device)
+        outs = enc_ops.encode_batch_sync(xs, ns, span=span)
+        with trace.host("gather"):
+            return tuple(_all_gather(o, group) for o in outs)
 
     return call
 
@@ -176,15 +179,20 @@ class DistributedCodec:
     def compress(self, data: bytes):
         """Returns (payload, clens, sync_bit, sync_out, nsync) with
         payload = raw concatenated streams in original block order."""
-        x, lens = pad_blocks(data, self.block)
-        nblocks = x.shape[0]
-        comp, clens, sbit, sout, nsync = self._enc(self._pad_batch(x),
-                                                   self._pad_batch(lens))
-        flat, total = concat_streams(comp[:nblocks], clens[:nblocks])
-        payload = flat[:int(total)].cpu().numpy().tobytes()
-        return (payload, clens[:nblocks].cpu().tolist(),
-                sbit[:nblocks].cpu().numpy(), sout[:nblocks].cpu().numpy(),
-                nsync[:nblocks].cpu().numpy())
+        with trace.host("pad"):
+            x, lens = pad_blocks(data, self.block)
+            nblocks = x.shape[0]
+            x, lens = self._pad_batch(x), self._pad_batch(lens)
+        comp, clens, sbit, sout, nsync = self._enc(x, lens)
+        with trace.host("wait"):  # the boolean mask reads its count
+            flat, total = concat_streams(comp[:nblocks], clens[:nblocks])
+            nbytes = int(total)
+        with trace.host("copy_out"):
+            return (flat[:nbytes].cpu().numpy().tobytes(),
+                    clens[:nblocks].cpu().tolist(),
+                    sbit[:nblocks].cpu().numpy(),
+                    sout[:nblocks].cpu().numpy(),
+                    nsync[:nblocks].cpu().numpy())
 
     def decompress(self, payload: bytes, clens, sbit, sout,
                    out_lens) -> bytes:

@@ -1,4 +1,4 @@
-"""Named stage spans of the codec's main path and of the raw decoder.
+"""Named stage spans of the codec's pipelines, host spans of its framing.
 
 Every stage of compress, decompress, the raw-stream decode (both
 engines of ``ops.decode``) and the streaming compressor's match search
@@ -13,6 +13,15 @@ entered, each stage also synchronises the current CUDA device before and
 after itself and adds its host-clock seconds to the dict it yields. The
 synchronisation serialises the stages, so use it for a breakdown and
 time throughput without it.
+
+``host(name)`` names the host's own work around the stages: a
+``record_function`` span ``lzs_host::<name>`` (``HOST_SPANS``) over the
+byte API's framing and over each read that blocks the host on the
+card's queue (``wait``, also inside a stage), so a trace names every
+idle gap of the card by what the host was doing. A host span never
+synchronises and ``stage_times()`` collects nothing from it; its prefix
+is not ``lzs::``, so the stages' attribution of device work is the same
+with it or without it.
 """
 
 from __future__ import annotations
@@ -40,6 +49,12 @@ SCAN_STAGES = ("scan_parse", "scan_expand")
 #: device, from the host copy in to the three tables back on the host
 STREAM_STAGES = ("stream_match",)
 
+#: host spans of the compress byte APIs: the file padded into blocks, its
+#: copy to the card, the host blocked on the card's queue, the shards'
+#: all-gather, the copies back, and the container built on the host
+HOST_SPANS = ("pad", "copy_in", "wait", "gather", "copy_out", "container")
+_HOST_NAMES = {name: f"lzs_host::{name}" for name in HOST_SPANS}
+
 
 def _sync() -> None:
     if torch.cuda.is_initialized():
@@ -59,6 +74,12 @@ def stage(name: str):
         yield
         _sync()
         times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+
+
+def host(name: str) -> torch.profiler.record_function:
+    """Run the enclosed host work as the span ``lzs_host::<name>``, one of
+    ``HOST_SPANS``."""
+    return torch.profiler.record_function(_HOST_NAMES[name])
 
 
 @contextlib.contextmanager
