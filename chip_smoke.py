@@ -57,7 +57,10 @@ non-zero):
               short blocks that must decode exactly and read one end
               marker each, and one decode_block at out_cap = 2^18 of a
               C-encoded slice of the corpus just under 256 KiB, which
-              must be exact and read its end marker;
+              must be exact and read its end marker; then the heads
+              kernel beside its plain version, bitwise equal, at the
+              IPComp burst's shape and at one input window's span
+              (heads_timing): kernel ms, bound ms, plain ms;
   6. scan     decode.decode_batch(engine="scan") of the same raw payload,
               with the counters reset just before: every block must equal
               its input, and (out, out_len, markers) engine "bits"'s,
@@ -173,7 +176,7 @@ PATH_KERNELS = {
              "gather_big", "rowscan_cummax", "rowscan_rcummin", "pack",
              "sync", "expand", "walk_tables", "walk_entries",
              "walk_descent", "parse"),
-    "raw": ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
+    "raw": ("raw_heads", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
     "scan": ("scan_parse", "expand"),
     "stream": ("perk_level", "ext_breaks", "ext_fold", "rank_mask",
@@ -223,8 +226,13 @@ BIG_KEEP = 3
 #: cut the run
 LONG_NIBBLES = (1 << 27) + (1 << 24)
 #: the raw decoder's kernels, which the long token's decode launches
-RAW_KERNELS = ("rowscan_rcummin", "rowscan_cummax", "rowscan_cumsum",
+RAW_KERNELS = ("raw_heads", "rowscan_cummax", "rowscan_cumsum",
                "walk_tables", "walk_entries", "walk_descent", "expand")
+#: the heads kernel's timed shapes beside its plain version: the IPComp
+#: burst's rows (HEADS_ROWS x HEADS_ROW_BYTES, the streams of 1 KiB blocks
+#: of the corpus) and one input window's span of the big raw file
+HEADS_ROWS = 8192
+HEADS_ROW_BYTES = 2048
 #: the stream phase's depth cut (1 MiB of the corpus) and feed size
 STREAM_SIZE = 1 << 20
 STREAM_FEED = 1 << 16
@@ -312,6 +320,7 @@ WRAPPERS = {
     "parse": (decode2, "_parse_flat", decode2._parse_flat_plain),
     "scan_parse": (decode, "_parse_scan_filled",
                    decode._parse_scan_filled_plain),
+    "raw_heads": (bitpar, "_heads", bitpar._heads_plain),
 }
 
 #: kernels whose plain version runs once per comparison, whose own call
@@ -383,7 +392,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: position 3, the input left 1, the head's fields 12 (flag, offset
 #: form, offset, length code, long test, length), its width and the gate
 #: 5, the length cut to the output left 2, the record 4, the state update
-#: 8: bit position, count, mode, offset, markers, done)
+#: 8: bit position, count, mode, offset, markers, done); raw_heads 38 per
+#: bit position (the window 1, the nibble chain 4: the nibble, its fit,
+#: the continue test and the recurrence's step; the head's fields 12, as
+#: scan_parse's; its width and the chain's entry 4, the chain's value at
+#: the head's end 1, the fit 2, the length 3, the successor 6, the step
+#: 2, the low bits 3)
 #: the scan parse's serial bound, a bound of its design (one walker a
 #: stream) and not of the work, which a parallel parse (engine "bits") is
 #: not held to: so it stands on phase scan's lines, not as ``bound_ms``.
@@ -401,6 +415,7 @@ OPS_PER_ELEMENT = {
     "rowscan_cummax": 1, "rowscan_rcummin": 1, "rowscan_cumsum": 1,
     "walk_tables": 21, "walk_entries": 3 / 128, "walk_descent": 22 / 7,
     "pack": 8, "sync": 18, "expand": 4, "parse": 50, "scan_parse": 35,
+    "raw_heads": 38,
 }
 
 
@@ -557,9 +572,12 @@ def _tensor_key(args: tuple, kw: dict) -> str:
 
 def _numel(name: str, args: tuple) -> int:
     """A call's size: its first tensor's elements (gather_big: queries;
-    parse: lane-substeps, B x L x 4 (span/32 + 2))."""
+    parse: lane-substeps, B x L x 4 (span/32 + 2); raw_heads: bit
+    positions, B x nbits)."""
     if name == "gather_big":
         return args[1].numel()
+    if name == "raw_heads":
+        return args[0].shape[0] * args[2]
     if name == "parse":
         return args[1].numel() * 4 * (args[3] // 32 + 2)
     return next(a.numel() for a in args if torch.is_tensor(a))
@@ -889,7 +907,49 @@ def phase_raw(data: bytes, device: torch.device, native):
     log("raw", f"decode_block of a {len(stream)}-byte C-encoded stream at "
         f"out_cap {bitpar.MAX_OUT_CAP}: {len(piece)} bytes exact, its end "
         f"marker read")
+    heads_timing(data, device, native_compress)
     return counts, 1e3 * dt
+
+
+def heads_timing(data: bytes, device: torch.device, native_compress) -> None:
+    """The heads kernel (bitpar._heads) beside its plain version at the
+    IPComp burst's shape (HEADS_ROWS rows of HEADS_ROW_BYTES, each the
+    port's stream of a 1 KiB block of the corpus, zero past it) and at one
+    input window's span of the big raw file (one row of _WIN + _MARGIN
+    bytes, the input going on past it): bitwise equal, then the kernel's
+    ms, its bound and the plain version's ms (CUDA events)."""
+    codec = BlockCodec(block=1024, device=device)
+    comp, clen, _, _ = raw_payload(codec, data[:HEADS_ROWS * 1024], device)
+    width = min(comp.shape[1], HEADS_ROW_BYTES)
+    keep = torch.arange(width, device=device) < clen[:, None]
+    rows = torch.zeros((comp.shape[0], HEADS_ROW_BYTES), dtype=torch.uint8,
+                       device=device)
+    rows[:, :width] = torch.where(keep, comp[:, :width], 0)
+    span = bitpar._WIN + bitpar._MARGIN
+    big = big_raw(cli_raw_chains(data, native_compress)[1])[0][:span]
+    one = torch.from_numpy(np.frombuffer(big, np.uint8).copy()).to(device)
+    for label, comp, inbits, cap in (
+            ("the burst's rows", rows, 8 * clen.to(torch.int32), 1024),
+            ("one input window's span", one[None],
+             torch.tensor([8 * (span + 4)], dtype=torch.int32,
+                          device=device), bitpar._NO_CAP)):
+        b, nbits = comp.shape[0], 8 * comp.shape[1]
+        args = (comp, inbits[:, None], nbits, cap, False)
+        got, want = bitpar._heads(*args), bitpar._heads_plain(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, want,
+                                                     strict=True)):
+            raise AssertionError(f"raw_heads at {label} differs from plain")
+        del got, want
+        bytes_ms = 1e3 * (comp.numel() + 13 * b * nbits) / MEMORY_BYTES_PER_S
+        ops_ms = (1e3 * OPS_PER_ELEMENT["raw_heads"] * b * nbits
+                  / INT32_OPS_PER_S)
+        log("raw", f"raw_heads at {label} ({b} x {comp.shape[1]} bytes): "
+            f"equal to plain (tolerance 0, bitwise), kernel "
+            f"{cuda_ms(lambda: bitpar._heads(*args)):.4f} ms, bound "
+            f"{max(bytes_ms, ops_ms):.4f} ms ("
+            f"{'bytes' if bytes_ms >= ops_ms else 'operations'}), plain "
+            f"{cuda_ms(lambda: bitpar._heads_plain(*args)):.4f} ms")
+        torch.cuda.empty_cache()
 
 
 def _prefix_equal(out: torch.Tensor, upto: torch.Tensor,

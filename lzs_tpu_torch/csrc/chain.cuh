@@ -1,5 +1,7 @@
 // The one-pass chained row scan (decoupled look-back) shared by K4 and
-// K5 (extend.cu) and K6-K9 (rowscan.cu).
+// K5 (extend.cu) and K6-K9 (rowscan.cu); its look-back and its epoch
+// (below) also chain the raw decoder's heads stage across tiles
+// (heads.cu).
 //
 // chain_scan_kernel<Op, kReverse, kVec, kRun, Io> scans int32 rows of n
 // elements: one CTA of 256 threads per tile of 256 * kRun elements, the
@@ -110,6 +112,37 @@ __device__ __forceinline__ void publish(unsigned long long* word,
   *reinterpret_cast<volatile unsigned long long*>(word) = w;
 }
 
+// This launch's tag: 1 + the epoch in the first word. A CTA reads it
+// before it counts itself done.
+__device__ __forceinline__ unsigned launch_tag(
+    const unsigned long long* words) {
+  return 1 + *reinterpret_cast<const volatile unsigned*>(words);
+}
+
+// One thread of the CTA, once the CTA has published its status words:
+// counts the CTA done and returns the count before it (read it after the
+// CTA's stores, in end_launch).
+__device__ __forceinline__ unsigned count_done(unsigned long long* words,
+                                               unsigned tag) {
+  // the wrapping launch clears the words: its prefixes land first
+  if (tag == kMaxTag) __threadfence();
+  return atomicAdd(reinterpret_cast<unsigned*>(words) + 1, 1u);
+}
+
+// The same thread, last: the last CTA (every CTA has read the epoch)
+// moves the epoch on, none done; the wrapping launch clears the status
+// words words[1 .. capacity] first.
+__device__ __forceinline__ void end_launch(unsigned long long* words,
+                                           int capacity, unsigned tag,
+                                           unsigned done) {
+  if (done != gridDim.x - 1) return;
+  if (tag == kMaxTag) {
+    __threadfence();
+    for (int i = 1; i <= capacity; ++i) words[i] = 0;
+  }
+  publish(words, tag == kMaxTag ? 0 : tag);
+}
+
 // Warp 0: the scan of the row's elements over the walk steps before
 // `step`, whose status words start at `words`. Every lane returns it.
 template <class Op>
@@ -169,12 +202,9 @@ chain_scan_kernel(const Io io, int n, int tiles,
   const int lane = threadIdx.x & 31;
   const Op op{};
   const Io rio = io.bind(row);
-  unsigned* const control = reinterpret_cast<unsigned*>(words);
   unsigned long long* const tile_words = words + 1;
   // this launch's tag (warp 0 publishes and looks back)
-  const unsigned tag =
-      threadIdx.x < 32 ? 1 + *reinterpret_cast<volatile unsigned*>(control)
-                       : 0;
+  const unsigned tag = threadIdx.x < 32 ? launch_tag(words) : 0;
 
   int4* const slots = planes + threadIdx.x;
   if constexpr (Io::kPlanes > 0) {
@@ -273,9 +303,7 @@ chain_scan_kernel(const Io io, int n, int tiles,
     }
     if (threadIdx.x == 0) {
       tile_prefix = before;
-      // the wrapping launch clears the words: its prefixes land first
-      if (tag == kMaxTag) __threadfence();
-      done = atomicAdd(control + 1, 1u);   // read after the stores
+      done = count_done(words, tag);
     }
   }
   __syncthreads();
@@ -289,14 +317,7 @@ chain_scan_kernel(const Io io, int n, int tiles,
               min(max(lim - e, 0), 4), s, kept[r / 4],
               slots + (r / 4) * kChainThreads, kStride);
   }
-  // the last CTA: every CTA has read the epoch; move it on, none done
-  if (threadIdx.x == 0 && done == gridDim.x - 1) {
-    if (tag == kMaxTag) {
-      __threadfence();
-      for (int i = 1; i <= capacity; ++i) words[i] = 0;
-    }
-    publish(words, tag == kMaxTag ? 0 : tag);
-  }
+  if (threadIdx.x == 0) end_launch(words, capacity, tag, done);
 }
 
 inline bool aligned16(const void* p) {

@@ -15,10 +15,11 @@
 //
 // Design (one template, instantiated as sum forward (K9), max forward
 // (K8), min backward (K7) and the mask's exclusive sum forward (K6)): the
-// callers give many rows (the raw decoder's 1024 x 75776 chain rows and
-// 256 x 33792 slot rows, the encoder's 256 x 32768, the filled records'
-// 256 x 38656, the probe's 256 x 32768 mask) and few (four 200704-wide
-// chain rows and one 89216-slot row per 2^18 decode_block), so a row is
+// callers give many rows (the raw decoder's 256 x 33792 slot rows, the
+// encoder's 256 x 32768, the filled records' 256 x 38656, the probe's
+// 256 x 32768 mask; the raw plain heads' 1024 x 75776 chain rows) and few
+// (one 89216-slot row per 2^18 decode_block; four 200704-wide chain rows
+// in its plain heads), so a row is
 // not a CTA's: every CTA takes one tile of a row, and the tiles chain
 // their partial results in one pass (a scan with decoupled look-back). A
 // max, a min and a wrapping sum chain alike; each starts from its

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "lzs_parse_lanes": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     "lzs_scan_parse": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     "lzs_chain_latency": [_P, _I, _I],
+    "lzs_raw_heads": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P, _I],
 }
 
 
@@ -245,9 +247,13 @@ PARSE = Kernel("parse", "lzs_parse_lanes", "lzs_tpu_torch/csrc/parse.cu",
 SCAN_PARSE = Kernel("scan_parse", "lzs_scan_parse",
                     "lzs_tpu_torch/csrc/scan_parse.cu",
                     "lzs_tpu/ops/decode.py:43")
+# replaces no pallas_call either: JAX computes the raw decoder's per-bit
+# head fields as jnp inside decode_batch_bits, which XLA fuses
+RAW_HEADS = Kernel("raw_heads", "lzs_raw_heads", "lzs_tpu_torch/csrc/heads.cu",
+                   "lzs_tpu/ops/bitpar.py:155")
 KERNELS = (PERK_LEVEL, EXT_BREAKS, EXT_FOLD, RANK_MASK, GATHER_BIG,
            CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES, WALK_DESCENT,
-           PACK, SYNC, EXPAND, PARSE, SCAN_PARSE)
+           PACK, SYNC, EXPAND, PARSE, SCAN_PARSE, RAW_HEADS)
 
 
 def reset_launches() -> None:

@@ -6,11 +6,14 @@ has no sync metadata, so its token boundaries are data-dependent
 
   1. A token head is decoded speculatively at EVERY bit offset of the
      stream (flag, offset and length fields are fixed bit extractions,
-     lzs-decompression.c:214-343), as plain elementwise torch.
+     lzs-decompression.c:214-343).
   2. Extension-nibble chains (lzs-decompression.c:370-406) step by 4
-     bits, so the 4 phase classes are rows of a reshape, and the added
+     bits, so the 4 phase classes are chains of their own, and the added
      length of every chain is the segmented reverse recurrence
-     y[t] = a[t] + g[t] * y[t+4] (``_seg_reverse_sum``).
+     y[t] = a[t] + g[t] * y[t+4]. Steps 1 and 2 are ``_heads``: on the
+     card one launch of ``csrc/heads.cu``, on the CPU plain elementwise
+     torch (``_heads_plain``, the chains a reshape into the 4 classes and
+     ``_seg_reverse_sum``).
   3. The successor of every bit (the next head if a head starts there)
      is then known, and the real heads are the orbit of bit 0: the token
      walk of the encoder (tokenize -> pwalk, kernels K11-K13 on the
@@ -56,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import spec, trace
-from . import pexpand, pext, tokenize
+from . import _kernels, pexpand, pext, tokenize
 # the record format (opos << 13) bounds the output capacity
 from .pexpand import MAX_OUT_CAP
 
@@ -80,9 +83,10 @@ MAX_WIDE_OUT_CAP = 1 << 30
 #: new input bytes of one input window, shared by the rows that a window
 #: decodes; a padded input at most this wide decodes in one pass at an
 #: out_cap up to ``_ROW``. A
-#: window's span peaks at 5.06 GiB of device memory at 2^23, 10.13 at
+#: window's span peaked at 5.06 GiB of device memory at 2^23, 10.13 at
 #: 2^24 and 18.78 at 2^25, at the same speed (scripts/raw_windows.py on
-#: an H100)
+#: an H100), while the heads stage was plain torch; with the heads kernel
+#: it peaks at 3.20 GiB over its input at 2^23 (chip_smoke.py)
 _WIN = 1 << 23
 #: input bytes a window reads past its new bytes: a head that starts in
 #: the new bytes is decided there if its successor lies inside the span
@@ -92,6 +96,8 @@ _MARGIN = 1 << 12
 _CUT_KEEP = 3
 #: a window's output length when nothing caps it (int32's largest)
 _NO_CAP = (1 << 31) - 1
+#: bits of a row that one CTA of the heads kernel takes (csrc/heads.cu)
+_TILE = 1 << 14
 
 
 def _seg_reverse_sum(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -146,12 +152,45 @@ def _heads(comp: torch.Tensor, inbits: torch.Tensor, nbits: int,
     length int32[B, nbits] its output bytes (0 for an end marker), low
     int32[B, nbits] is_copy << 11 | payload, 0 for an end marker).
 
+    comp: uint8/int32[B, C] bytes (past C, and past nbits // 8 + 4, read
+    as zero); inbits: int32[B, 1] input bits; nbits: a multiple of 8,
+    at most 8 * ``MAX_WIDE_INPUT`` (the kernel refuses others).
     carry: None, or (bit int32[B], offset int32[B]): where offset >= 0,
     the row's head at ``bit`` continues a copy of that offset whose run
     of extension nibbles an earlier input window cut there
     (``_window_loop``). It has no fields of its own (need 0, len_init 0):
     its chain starts at the bit itself, so its length is the chain's sum
-    there and its successor lies past the chain."""
+    there and its successor lies past the chain.
+
+    CPU tensors run ``_heads_plain``; CUDA tensors launch the heads
+    kernel once (int32 bytes are narrowed to uint8 first)."""
+    carry = () if carry is None else carry
+    if _kernels.on_cpu(comp, inbits, *carry):
+        return _heads_plain(comp, inbits, nbits, out_cap, multi_stream,
+                            carry or None)
+    b = comp.shape[0]
+    dev = comp.device
+    comp = comp.to(torch.uint8).contiguous()
+    inbits = inbits.reshape(b).to(_I32).contiguous()
+    carry = [x.to(_I32).contiguous() for x in carry]
+    planes = (torch.empty((b, nbits), dtype=_I32, device=dev),
+              torch.empty((b, nbits), dtype=torch.bool, device=dev),
+              torch.empty((b, nbits), dtype=_I32, device=dev),
+              torch.empty((b, nbits), dtype=_I32, device=dev))
+    if b:
+        # a row's tiles chain their nibble runs through 4 status words each
+        words = _kernels.stream_words(dev, 1 + 4 * b * -(-nbits // _TILE))
+        _kernels.RAW_HEADS.launch(
+            dev, comp.data_ptr(), comp.shape[1], inbits.data_ptr(),
+            *([x.data_ptr() for x in carry] or (None, None)),
+            *(x.data_ptr() for x in planes), b, nbits, out_cap,
+            int(multi_stream), words.data_ptr(), words.numel() - 1)
+    return planes
+
+
+def _heads_plain(comp: torch.Tensor, inbits: torch.Tensor, nbits: int,
+                 out_cap: int, multi_stream: bool, carry=None):
+    """``_heads`` as plain torch."""
     b = comp.shape[0]
     cpad = nbits // 8
     t = torch.arange(nbits, dtype=_I32, device=comp.device)[None, :]

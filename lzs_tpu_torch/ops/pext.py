@@ -17,8 +17,9 @@ forward (K9, and K6, which reads bytes and stores the exclusive sum).
 Callers: the emission-unit ownership scans (tokenize), the run-end
 pinning of the match extension and its probe tier (sortmatch:
 ext_breaks, ext_fold, rank_mask, rcummin_rows), the record fill
-(decode2, bitpar), and the raw decoder's output offsets and extension
-chains (bitpar).
+(decode2, bitpar), the raw decoder's output offsets (bitpar) and the
+extension chains of its plain heads (``bitpar._heads_plain``; on the card
+the heads kernel sums them itself).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Seeded edge inputs for the row scans (K7-K9), the match extension's
 breaks (K4) and fold (K5), the token walk's entries (K12), the bit pack
-(K14+K15), sync (K16) and expand (K17).
+(K14+K15), sync (K16), expand (K17) and the raw decoder's heads.
 
 tests/test_torch_scan.py, tests/test_torch_walk.py,
 tests/test_torch_sync.py and tests/test_torch_expand.py hold the port's
@@ -42,7 +42,14 @@ nibbles of 4 bits right after the head of a copy of length >= 8 (one per
 widths, so every parse step is at most 24 bits from the next and every
 span boundary has one crossing step. Expand rows are cummax-filled record
 rows ((opos << 13) | (is_copy << 11) | payload, -1 before the first
-record), hand-made or from the port's own encoder and lane parse.
+record), hand-made or from the port's own encoder and lane parse. Heads
+rows are raw input for the per-bit heads (``bitpar._heads``): noise with
+a run of 1 bits in each row (15-nibbles at every bit phase) that ends
+exactly at, a bit, a nibble or a head's reach (17 bits) before or past a
+boundary of the heads kernel's 16384-bit tiles, one run across several
+tiles, a row of 1s alone, input lengths inside a run and past the row;
+the raw fuzz streams are the reference encoder's of random, RLE,
+periodic and already-compressed data, two concatenated and one cut.
 """
 
 import functools
@@ -51,7 +58,7 @@ import numpy as np
 import pytest
 import torch
 
-from lzs_tpu_torch import spec
+from lzs_tpu_torch import reference, spec
 from lzs_tpu_torch.ops import decode2, encode, pext
 
 # a copy of length >= 8 starting here in a wide row: its nibble chain
@@ -417,6 +424,68 @@ def expand_batch(seed, out_cap, s=None):
     return np.stack(fills), np.array(ns, np.int32)
 
 
+#: bits of a row that one CTA of the heads kernel takes (csrc/heads.cu)
+HEADS_TILE = 1 << 14
+#: where the heads rows' runs of 1 bits end, from a tile boundary: at it,
+#: a bit, a nibble and a head's reach (up to 17 bits) before and past it
+HEADS_ENDS = (-21, -17, -16, -5, -4, -1, 0, 1, 3, 4, 15, 16, 17, 18, 21)
+
+
+def heads_rows(seed, width):
+    """Rows of ``width`` bytes (past 2 tiles) and their input bits.
+
+    Row i < len(HEADS_ENDS): noise, with a run of 1 bits 200 to 2000 bits
+    long that ends HEADS_ENDS[i] bits from the boundary of tile 1 or 2
+    (alternately), a 0 bit right after it; its input bits are the row's,
+    or end 7 bits before the run does, or go 32 bits past the row (an
+    input window's span), by i % 3. Then a run from bit 3000 to 50 bits
+    into tile 3 where the row reaches it (else to its end), and a row of
+    1s alone. Returns (uint8[B, width], int32[B])."""
+    rng = np.random.default_rng(seed)
+    nbits = 8 * width
+    assert nbits > 2 * HEADS_TILE + 64
+    b = len(HEADS_ENDS) + 2
+    bits = rng.integers(0, 2, (b, nbits), dtype=np.uint8)
+    inbits = np.full(b, nbits, np.int64)
+    for i, d in enumerate(HEADS_ENDS):
+        end = HEADS_TILE * (1 + i % 2) + d
+        bits[i, end - int(rng.integers(200, 2000)):end] = 1
+        bits[i, end] = 0
+        inbits[i] = (nbits, end - 7, nbits + 32)[i % 3]
+    bits[-2, 3000:min(3 * HEADS_TILE + 50, nbits)] = 1
+    bits[-1] = 1
+    return np.packbits(bits, axis=1), inbits.astype(np.int32)
+
+
+def raw_fuzz(seed):
+    """30 raw streams of random, RLE, periodic and already-compressed
+    data (the reference encoder's, up to 700 bytes in), two of them
+    concatenated and one cut: (uint8[32, C] zero past each stream, int32
+    lengths)."""
+    rng = np.random.default_rng(seed)
+    datas = []
+    for _ in range(30):
+        kind = rng.integers(0, 4)
+        n = int(rng.integers(0, 700))
+        if kind == 0:
+            d = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+        elif kind == 1:
+            d = bytes([int(rng.integers(0, 4))]) * n
+        elif kind == 2:
+            d = (bytes(rng.integers(97, 123, 13, dtype=np.uint8))
+                 * (n // 13 + 1))[:n]
+        else:
+            d = reference.lzs_compress(bytes(rng.integers(0, 256, n,
+                                                          dtype=np.uint8)))
+        datas.append(d)
+    streams = [reference.lzs_compress(d) for d in datas]
+    streams += [streams[0] + streams[1], streams[2][:len(streams[2]) // 2]]
+    buf = np.zeros((len(streams), max(map(len, streams)) + 8), np.uint8)
+    for row, st in zip(buf, streams):
+        row[:len(st)] = np.frombuffer(st, np.uint8)
+    return buf, np.array([len(st) for st in streams], np.int32)
+
+
 def test_cumsum_rows_wrap():
     v = cumsum_rows(0, 4, 1000).astype(np.int64)
     assert v.max() > (1 << 31) - 2000 and v.min() < -(1 << 31) + 2000
@@ -558,3 +627,24 @@ def test_expand_batch_properties(out_cap):
     opos = np.where(rec[-3] >= 0, rec[-3] >> 13, -1)
     per_chunk = np.bincount(opos[opos >= 0] // 1024)
     assert per_chunk[0] > 1024
+
+
+@pytest.mark.parametrize("width", [3 * 2048 + 1000, 40 * 2048 + 8])
+def test_heads_rows_properties(width):
+    rows, inbits = heads_rows(width, width)
+    bits = np.unpackbits(rows, axis=1)
+    assert rows.shape == (len(HEADS_ENDS) + 2, width)
+    for i, d in enumerate(HEADS_ENDS):
+        end = HEADS_TILE * (1 + i % 2) + d
+        assert bits[i, end - 200:end].all() and bits[i, end] == 0
+    assert bits[-1].all() and (inbits[2::3][:5] == 8 * width + 32).all()
+    # the runs of 1s: one past tile 3's start (or the row's end), one
+    # across every tile of the row
+    assert bits[-2, 3000:min(3 * HEADS_TILE + 50, 8 * width)].all()
+    assert -(-8 * width // HEADS_TILE) > (3 if width < 8192 else 33)
+
+
+def test_raw_fuzz_properties():
+    buf, lens = raw_fuzz(7)
+    assert buf.shape[0] == 32 and (lens > 0).all()
+    assert all(not buf[i, n:].any() for i, n in enumerate(lens))

@@ -30,7 +30,11 @@ skips past a ring slot and a ring, chains past the row; the mask rank
 (K6) at batch 33 on ragged and misaligned rows and bytes other than 0/1;
 the raw decoder's scan parse, both stores, at batch 33 on encoded,
 truncated, concatenated and noise streams, with a budget that cuts, and
-on the 2^18 stream in rows wider than its shared-memory ring); the codec's
+on the 2^18 stream in rows wider than its shared-memory ring; the raw
+decoder's heads kernel, one launch a call, on the raw fuzz batch, a
+batch shaped like the IPComp burst, rows of up to 41 tiles with runs of
+15-nibbles at and across tile boundaries, clamping out_caps and
+continuation heads, tests/test_torch_cases.py's heads rows); the codec's
 bytes (also a 256-block container), the probe's run lengths and the raw
 decoder's output on the card are compared with the CPU's. The streaming
 codec's match search runs at batch 1: both backends at every pool of
@@ -56,14 +60,14 @@ import pytest
 import torch
 
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
-from lzs_tpu_torch.ops import (_kernels, decode, decode2, encode, pcand,
-                               pexpand, pext, pgather, ppack, psync, pwalk,
-                               sortmatch)
+from lzs_tpu_torch.ops import (_kernels, bitpar, decode, decode2, encode,
+                               pcand, pexpand, pext, pgather, ppack, psync,
+                               pwalk, sortmatch)
 
 from test_torch_cases import (FOLD_CAP, WALK_SKIPS, breaks_rows,
                               cumsum_rows, expand_batch, fold_rows,
-                              hand_fill, minmax_rows, pack_units, sync_batch,
-                              sync_kwargs, walk_steps)
+                              hand_fill, heads_rows, minmax_rows, pack_units,
+                              raw_fuzz, sync_batch, sync_kwargs, walk_steps)
 
 pytestmark = pytest.mark.gpu
 
@@ -748,9 +752,10 @@ def test_raw_decode_on_card_equals_cpu(cuda):
     got = gpu.decode_batch_raw(comp.to(cuda), clen.to(cuda))
     counts = _kernels.launch_counts()
     _equal([t.cpu() for t in got], want)
-    for name in ("rowscan_rcummin", "rowscan_cumsum", "walk_tables",
+    for name in ("raw_heads", "rowscan_cumsum", "walk_tables",
                  "walk_entries", "walk_descent", "rowscan_cummax", "expand"):
         assert counts[name] > 0, name
+    assert counts["rowscan_rcummin"] == 0
     chain = b"".join(comp[i, :clen[i]].numpy().tobytes()
                      for i in range(len(lens)))
     for multi in (False, True):
@@ -758,6 +763,98 @@ def test_raw_decode_on_card_equals_cpu(cuda):
                                     device=cuda)
                 == decode.decode_bytes(chain, 1 << 18, multi_stream=multi,
                                        device="cpu"))
+
+
+def _heads_equal(comp, inbits, nbits, out_cap, multi=False, carry=None):
+    """One ``bitpar._heads`` call on the card: one launch of the heads
+    kernel and none of the chained scans, its four planes bitwise equal
+    to ``_heads_plain`` on the same CUDA tensors."""
+    args = (comp, inbits[:, None], nbits, out_cap, multi, carry)
+    kernels = (_kernels.RAW_HEADS, _kernels.RCUMMIN, _kernels.CUMSUM)
+    before = [k.launches for k in kernels]
+    got = bitpar._heads(*args)
+    assert [k.launches for k in kernels] == [before[0] + 1, *before[1:]]
+    _equal(got, bitpar._heads_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("out_cap", [2048, 20])
+@pytest.mark.parametrize("multi", [False, True])
+def test_raw_heads_kernel_fuzz(cuda, multi, out_cap, dtype):
+    """The raw fuzz batch at the width decode_batch_bits pads it to, both
+    end-marker modes, an out_cap that clamps, int32 bytes too."""
+    buf, lens = raw_fuzz(7)
+    comp = torch.from_numpy(buf).to(cuda, dtype)
+    _heads_equal(comp, torch.from_numpy(lens * 8).to(cuda),
+                 8 * bitpar._padded(buf.shape[1]), out_cap, multi)
+
+
+def test_raw_heads_kernel_burst(cuda):
+    """A batch shaped like the IPComp burst: the codec's streams of 556-
+    and 1480-byte payloads (4:1) in 2048-byte rows, zero past each."""
+    lens = np.array([556, 556, 556, 556, 1480] * 8, np.int32)
+    data = _corpus_like(21, int(lens.sum()))
+    x = np.zeros((len(lens), 1500), np.uint8)
+    at = np.concatenate([[0], np.cumsum(lens)])
+    for row, s, n in zip(x, at, lens):
+        row[:n] = np.frombuffer(data[s:s + n], np.uint8)
+    codec = BlockCodec(block=1500, device=cuda)
+    comp, clen, _, _, _ = codec.encode_batch(torch.from_numpy(x).to(cuda),
+                                             torch.from_numpy(lens).to(cuda))
+    rows = torch.zeros((len(lens), 2048), dtype=torch.uint8, device=cuda)
+    width = min(comp.shape[1], 2048)
+    rows[:, :width] = torch.where(
+        torch.arange(width, device=cuda) < clen[:, None], comp[:, :width], 0)
+    _heads_equal(rows, clen * 8, 8 * 2048, 1500)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("width", [3 * 2048 + 1000, 40 * 2048 + 8])
+def test_raw_heads_kernel_tiles(cuda, width, multi, shift):
+    """Rows of several of the kernel's tiles, at span widths that are not
+    a multiple of 1 KiB (as _window_loop passes): runs of 15-nibbles that
+    end at, just before and just past tile boundaries, one across several
+    tiles and a row of them (past 32 tiles: the look-back's next window
+    of steps); input lengths inside a run and past the row; the rows 1
+    byte past a 4-byte boundary where ``shift`` (byte loads); and the
+    burst's row alone."""
+    rows, inbits = heads_rows(width, width)
+    flat = torch.zeros(rows.size + shift, dtype=torch.uint8, device=cuda)
+    flat[shift:] = torch.from_numpy(rows.reshape(-1)).to(cuda)
+    comp = flat[shift:].view(rows.shape)
+    inbits = torch.from_numpy(inbits).to(cuda)
+    _heads_equal(comp, inbits, 8 * width, bitpar._NO_CAP, multi)
+    _heads_equal(comp[-2:-1], inbits[-2:-1], 8 * width, bitpar._NO_CAP,
+                 multi)
+
+
+@pytest.mark.parametrize("out_cap", [20, 1000])
+def test_raw_heads_kernel_clamps(cuda, out_cap):
+    """Lengths past out_cap (runs of 15-nibbles) clamp to it."""
+    rows, inbits = heads_rows(3, 3 * 2048 + 1000)
+    _heads_equal(torch.from_numpy(rows).to(cuda),
+                 torch.from_numpy(inbits).to(cuda), 8 * rows.shape[1],
+                 out_cap)
+
+
+@pytest.mark.parametrize("width", [3 * 2048 + 1000, 40 * 2048 + 8])
+def test_raw_heads_kernel_carry(cuda, width):
+    """Continuation heads (carry) at first bits 0-7 with offsets 1 and
+    2047, and rows with none (-1); every other row opens with a run of
+    15-nibbles, so some continuations run on across tiles."""
+    rows, inbits = heads_rows(5, width)
+    rows[::2, :64] = 0xFF
+    b = len(rows)
+    bit = torch.arange(b, dtype=torch.int32, device=cuda) % 8
+    offset = torch.tensor([(1, 2047, -1)[i % 3] for i in range(b)],
+                          dtype=torch.int32, device=cuda)
+    _heads_equal(torch.from_numpy(rows).to(cuda),
+                 torch.from_numpy(inbits).to(cuda), 8 * width,
+                 bitpar._NO_CAP, False, (bit, offset))
+    _heads_equal(torch.from_numpy(rows).to(cuda),
+                 torch.from_numpy(inbits).to(cuda), 8 * width, 300, True,
+                 (bit, offset))
 
 
 def _scan_streams(dev, shift):
@@ -1386,7 +1483,8 @@ def test_raw_file_past_2_25_on_card(cuda, tmp_path):
     8 MiB bench corpus, repeated: some 37 MiB) decodes on the card to
     its input through decode_bytes (multi-stream, out_cap the output)
     and through cli.main, over windows of the input that launch the
-    walk (K11-K13), the chained scans (K7-K9) and the expansion (K17)."""
+    heads kernel, the walk (K11-K13), the chained scans (K8, K9) and the
+    expansion (K17)."""
     import contextlib
     import io
 
@@ -1405,7 +1503,7 @@ def test_raw_file_past_2_25_on_card(cuda, tmp_path):
     assert decode.decode_bytes(chain, len(want), multi_stream=True) == want
     counts = _kernels.launch_counts()
     for name in ("walk_tables", "walk_entries", "walk_descent",
-                 "rowscan_rcummin", "rowscan_cumsum", "rowscan_cummax"):
+                 "raw_heads", "rowscan_cumsum", "rowscan_cummax"):
         assert counts[name] >= 2, (name, counts[name])
     assert counts["expand"] > len(want) >> 18
     src, out = tmp_path / "big.lzs", tmp_path / "big.out"
@@ -1422,8 +1520,8 @@ def test_long_token_on_card(cuda, tmp_path):
     some 2.5 input windows (5 * 2^23 nibbles: 20 MiB in, 629 MB out)
     decodes on the card through cli.main, each window cutting the run,
     and through decode_batch_bits at an out_cap inside the token: the
-    copy rule's bytes, over windows that launch the walk (K11-K13), the
-    chained scans (K7-K9) and the expansion (K17)."""
+    copy rule's bytes, over windows that launch the heads kernel, the walk
+    (K11-K13), the chained scans (K8, K9) and the expansion (K17)."""
     import contextlib
     import io
 

@@ -42,7 +42,9 @@ from lzs_tpu.ops import decode as jdecode
 from lzs_tpu.utils import native
 from lzs_tpu_torch import convert
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
-from lzs_tpu_torch.ops import bitpar, decode
+from lzs_tpu_torch.ops import _kernels, bitpar, decode
+
+from test_torch_cases import heads_rows, raw_fuzz
 
 
 def _batch(streams):
@@ -241,6 +243,32 @@ def test_bit_windows_match_jax(c0, cpad):
     got = bitpar._bit_windows(torch.from_numpy(comp), cpad)
     assert got.dtype == torch.int32 and got.shape == (32, 8 * cpad)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_heads_on_cpu_is_plain(multi):
+    """On CPU tensors ``_heads`` is ``_heads_plain`` and launches nothing:
+    the raw fuzz batch, and rows of several 16384-bit tiles with
+    continuation heads (the heads kernel's test inputs on the card)."""
+    before = _kernels.RAW_HEADS.launches
+    buf, lens = raw_fuzz(7)
+    comp, inbits = torch.from_numpy(buf), torch.from_numpy(lens * 8)[:, None]
+    nbits = 8 * bitpar._padded(buf.shape[1])
+    for got, want in zip(bitpar._heads(comp, inbits, nbits, 2048, multi),
+                         bitpar._heads_plain(comp, inbits, nbits, 2048,
+                                             multi), strict=True):
+        assert torch.equal(got, want)
+    rows, inbits = heads_rows(5, 3 * 2048 + 1000)
+    b = len(rows)
+    carry = (torch.arange(b, dtype=torch.int32) % 8,
+             torch.tensor([(1, 2047, -1)[i % 3] for i in range(b)],
+                          dtype=torch.int32))
+    args = (torch.from_numpy(rows), torch.from_numpy(inbits)[:, None],
+            8 * rows.shape[1], 300, multi, carry)
+    for got, want in zip(bitpar._heads(*args), bitpar._heads_plain(*args),
+                         strict=True):
+        assert torch.equal(got, want)
+    assert _kernels.RAW_HEADS.launches == before
 
 
 def test_decode_block_at_max_out_cap_matches_reference():
