@@ -30,6 +30,9 @@ Layout (mirrors ``lzs_tpu``):
                    _kernels.py   nvcc build, ctypes loader, launch counts
   csrc/          the hand-written CUDA kernels (sm_90a)
   blocks.py      BlockCodec and the container framing
+  sessions.py    SessionCodec: one carried history a link (PPP Stac LZS,
+                 RFC 1974), one packet a link a call through the encode
+                 pipeline
   parallel/      block data parallelism over ranks (torch.distributed)
   models/        named codec profiles
   cli.py         file-to-file compress/decompress
@@ -40,23 +43,35 @@ Layout (mirrors ``lzs_tpu``):
 
 A kernel runs for a tensor on a CUDA device; a tensor on the CPU runs
 the kernel's plain torch version. Nothing falls back. The entry points
-(``BlockCodec``, ``ops.decode.decode_bytes``, ``ops.encode.encode_bytes``,
-``StreamCompressor``, ``stream.compress_stream``, ``GeneralCodec``,
-``models.get_profile``, ``parallel.DistributedCodec``, the CLI,
+(``BlockCodec``, ``SessionCodec``, ``ops.decode.decode_bytes``,
+``ops.encode.encode_bytes``, ``StreamCompressor``,
+``stream.compress_stream``, ``GeneralCodec``, ``models.get_profile``, ``parallel.DistributedCodec``, the CLI,
 ``convert.codec_from_jax``, ``convert.stream_state_from_jax``,
 ``convert.general_codec_from_jax``) run on the card unless the caller
 asks for ``device="cpu"``.
+
+``SessionCodec`` carries one history a link: two calls on two links,
+and link 0's packets read back by a ``StreamDecompressor``, which keeps
+its history across the end markers::
+
+    codec = SessionCodec(2, mtu=8, device="cpu")
+    x = torch.frombuffer(bytearray(b"abcabcabhello wo"), dtype=torch.uint8)
+    a, na = codec.compress(x.reshape(2, 8), torch.tensor([8, 5]))
+    b, nb = codec.compress(x.reshape(2, 8), torch.tensor([8, 8]))
+    assert StreamDecompressor().feed(bytes(a[0, :na[0]]) + bytes(
+        b[0, :nb[0]])) == b"abcabcab" * 2
 """
 
 from .spec import DEFAULT_CONFIG, LzsConfig, compressed_max
 from .reference import lzs_compress, lzs_decompress
 from .blocks import BlockCodec
+from .sessions import SessionCodec
 
 __version__ = "0.1.0"
 
 __all__ = ["BlockCodec", "DEFAULT_CONFIG", "GeneralCodec", "LzsConfig",
-           "StreamCompressor", "StreamDecompressor", "compressed_max",
-           "lzs_compress", "lzs_decompress"]
+           "SessionCodec", "StreamCompressor", "StreamDecompressor",
+           "compressed_max", "lzs_compress", "lzs_decompress"]
 
 
 def __getattr__(name):

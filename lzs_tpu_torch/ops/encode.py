@@ -57,8 +57,11 @@ def sync_scan_len(span: int = SYNC_SPAN) -> int:
 
 
 def _pipeline_batch(x: torch.Tensor, n: torch.Tensor, window: int, cap: int,
-                    backend: str = "sort", policy: str = "greedy"):
-    """Batched encode pipeline: x (B, N) bytes, n int32[B]."""
+                    backend: str = "sort", policy: str = "greedy",
+                    start: torch.Tensor | None = None):
+    """Batched encode pipeline: x (B, N) bytes, n int32[B]; ``start``
+    (int32[B] or None) is where each row's parse begins (see
+    ``encode_batch``)."""
     x = x.to(torch.int32)
     npos = x.shape[1]
     if backend == "sort":
@@ -83,7 +86,7 @@ def _pipeline_batch(x: torch.Tensor, n: torch.Tensor, window: int, cap: int,
         raise ValueError(f"unknown policy {policy!r}")
     with trace.stage("units"):
         value, width, starts, _ = tokenize.emission_units_batch(
-            x, n, score, off, full)
+            x, n, score, off, full, start)
     with trace.stage("pack"):
         comp, total_bits, offs = bitpack.pack_bits_batch(
             value, width, cap_bytes(npos),
@@ -108,15 +111,21 @@ def encode_block(x: torch.Tensor, n: torch.Tensor, *,
 def encode_batch(x: torch.Tensor, n: torch.Tensor, *,
                  window: int = spec.WINDOW_SIZE,
                  cap: int = spec.SEARCH_MATCH_MAX, backend: str = "sort",
-                 policy: str = "greedy"):
+                 policy: str = "greedy", start: torch.Tensor | None = None):
     """(uint8[B, N], int32[B]) -> (uint8[B, cap_bytes(N)], int32[B]).
 
     ``backend`` is "sort" or "exhaustive" (same bytes); ``policy`` is
     "greedy" (the C encoder's bytes) or "lazy" (1-token lookahead). JAX's
     ``chunk`` has no counterpart: the exhaustive plane's fold width is
     ``match.FOLD``, and the bytes do not depend on it.
+
+    ``start`` (int32[B], 0 <= start <= n, on x's device) opens each row
+    with a carried history of that many bytes: they are match sources for
+    the bytes after them (up to ``window`` back) and emit no token, so
+    row b's stream encodes x[b, start:n] against them. None (or zeros)
+    gives the stateless bytes.
     """
-    return _pipeline_batch(x, n, window, cap, backend, policy)[:2]
+    return _pipeline_batch(x, n, window, cap, backend, policy, start)[:2]
 
 
 def encode_block_sync(x: torch.Tensor, n: torch.Tensor, *,

@@ -38,8 +38,14 @@ def token_starts(step: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def emission_units_batch(x: torch.Tensor, n: torch.Tensor,
                          score: torch.Tensor, off: torch.Tensor,
-                         full: torch.Tensor):
+                         full: torch.Tensor,
+                         start: torch.Tensor | None = None):
     """Per-position emission units over (B, N) arrays.
+
+    ``start`` (int32[B], 0 <= start <= n, or None for all 0) is where each
+    row's parse begins: the bytes before it are a carried history, match
+    sources that emit nothing. The walk treats them as one token from
+    position 0 to ``start``, and that token's start is dropped.
 
     Returns (value, width, starts, length): int32 value/width (width 0
     emits nothing), bool token-start flags, int32 token length at starts
@@ -50,7 +56,13 @@ def emission_units_batch(x: torch.Tensor, n: torch.Tensor,
     nq = n[:, None]
     is_match = (score >= spec.MIN_MATCH) & (i < nq)
     length = torch.where(is_match, full, 1)
-    starts = token_starts(torch.where(i < nq, length, 1), n)
+    step = torch.where(i < nq, length, 1)
+    if start is not None:
+        step[:, 0] = torch.where(start > 0, start, step[:, 0])
+    starts = token_starts(step, n)
+    del step
+    if start is not None:
+        starts &= i >= start[:, None]
 
     # head units: length code by arithmetic (lzs-compression.c:91-124)
     initial = length.clamp(max=spec.MAX_SHORT_LENGTH).clamp(2, 8)

@@ -1,8 +1,8 @@
 """Named stage spans of the codec's pipelines, host spans of its framing.
 
 Every stage of compress, decompress, the raw-stream decode (both
-engines of ``ops.decode``) and the streaming compressor's match search
-runs inside ``stage(name)``: a
+engines of ``ops.decode``), the streaming compressor's match search and
+the session codec's history runs inside ``stage(name)``: a
 ``torch.profiler.record_function`` span named ``lzs::<name>``, which a
 profiler trace shows on the host and, as a user annotation, over the
 device work the stage launched. With no profiler running a span costs a
@@ -48,6 +48,11 @@ SCAN_STAGES = ("scan_parse", "scan_expand")
 #: stage of the streaming compressor: one slice's match search on its
 #: device, from the host copy in to the three tables back on the host
 STREAM_STAGES = ("stream_match",)
+
+#: stage of the session codec (``sessions.SessionCodec``): the rows of
+#: [history | packet] assembled, and each link's history cut from its row
+#: after the encode (the encode's own stages run between the two)
+SESSION_STAGES = ("history",)
 
 #: host spans of the compress byte APIs: the file padded into blocks, its
 #: copy to the card, the host blocked on the card's queue, the shards'

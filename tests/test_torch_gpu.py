@@ -46,8 +46,11 @@ CPU and the C encoder. The codec profiles' match tables (windows 2047,
 decoder's windows past 2^18 output bytes equal the CPU and the input;
 the CLI's raw decode takes the device route at every size, a raw file
 past 2^25 bytes of input included (windows of the input), and a token
-whose run of extension nibbles spans some 2.5 input windows; and
-DistributedCodec on an NCCL world of one equals BlockCodec.
+whose run of extension nibbles spans some 2.5 input windows;
+DistributedCodec on an NCCL world of one equals BlockCodec; and the
+session codec (one carried history a link) at batch 33 equals its CPU
+form call for call, its histories too, while ``encode_batch`` with a
+zero ``start`` launches what it launches without one.
 """
 
 import json
@@ -60,6 +63,7 @@ import pytest
 import torch
 
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks
+from lzs_tpu_torch.sessions import SessionCodec
 from lzs_tpu_torch.ops import (_kernels, bitpar, decode, decode2, encode,
                                pcand, pexpand, pext, pgather, ppack, psync,
                                pwalk, sortmatch)
@@ -68,6 +72,7 @@ from test_torch_cases import (FOLD_CAP, WALK_SKIPS, breaks_rows,
                               cumsum_rows, expand_batch, fold_rows,
                               hand_fill, heads_rows, minmax_rows, pack_units,
                               raw_fuzz, sync_batch, sync_kwargs, walk_steps)
+from test_torch_sessions import _batch, _plan, _text
 
 pytestmark = pytest.mark.gpu
 
@@ -1578,3 +1583,35 @@ def test_distributed_codec_nccl_world_of_one(cuda, tmp_path):
     for got, w in zip((np.asarray(clens), sbit, sout, nsync), want[1:],
                       strict=True):
         np.testing.assert_array_equal(got, w.cpu().numpy())
+
+
+def test_session_codec_on_card_equals_cpu(cuda):
+    packets = _plan(5, 33, 7)
+    gpu = SessionCodec(33, device=cuda)
+    cpu = SessionCodec(33, device="cpu")
+    for c, row in enumerate(packets):
+        if c == 4:
+            gpu.reset([0, 7])
+            cpu.reset([0, 7])
+        x, n = _batch(row)
+        comp, nbytes = gpu.compress(x.to(cuda), n.to(cuda))
+        want, wbytes = cpu.compress(x, n)
+        assert torch.equal(nbytes.cpu(), wbytes)
+        assert torch.equal(comp.cpu(), want)
+        assert torch.equal(gpu.hlen.cpu(), cpu.hlen)
+        assert torch.equal(gpu.hist.cpu(), cpu.hist)
+
+
+def test_encode_start_zero_launches_the_same(cuda):
+    rng = np.random.default_rng(21)
+    x, n = _batch([_text(rng, int(k)) for k in rng.integers(0, 3548, 33)],
+                  3547)
+    x, n = x.to(cuda), n.to(cuda)
+    out, counts = [], []
+    for start in (None, torch.zeros(33, dtype=torch.int32, device=cuda)):
+        _kernels.reset_launches()
+        out.append(encode.encode_batch(x, n, start=start))
+        counts.append(_kernels.launch_counts())
+    assert counts[0] == counts[1] and counts[0]["walk_descent"] == 1
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
