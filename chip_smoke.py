@@ -43,7 +43,8 @@ non-zero):
               and the input instead (PLAIN_TOO_SLOW); the scan parse is
               recorded in its filled form (the decode's), and its
               step-major form (JAX's records) is held on the same inputs
-              against the plain loop on their CPU copies;
+              against the plain loop on their CPU copies; then the gram
+              kernels at the compress cells' row shapes (GRAM_SHAPES);
   4. main     BlockCodec(block=32768, device="cuda") compress + decompress
               of the corpus with every launch counter reset just before;
               the round trip must be exact, the raw payload must equal the
@@ -161,8 +162,8 @@ from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from lzs_tpu_torch.blocks import BlockCodec, pad_blocks  # noqa: E402
 from lzs_tpu_torch.ops import (  # noqa: E402
     _kernels, bitpar, decode, decode2, encode, pcand, pexpand, pext, pgather,
-    ppack, psync, pwalk)
-from lzs_tpu_torch import cli, parallel, stream, trace  # noqa: E402
+    ppack, psync, pwalk, sortmatch)
+from lzs_tpu_torch import cli, parallel, spec, stream, trace  # noqa: E402
 from lzs_tpu_torch.models import PROFILES, get_profile  # noqa: E402
 from lzs_tpu_torch.utils import native  # noqa: E402
 
@@ -172,15 +173,15 @@ REPS = 10
 
 #: kernels each path must launch (the counters are reset before each)
 PATH_KERNELS = {
-    "main": ("perk_level", "ext_breaks", "ext_fold", "rank_mask",
-             "gather_big", "rowscan_cummax", "rowscan_rcummin", "pack",
-             "sync", "expand", "walk_tables", "walk_entries",
-             "walk_descent", "parse"),
+    "main": ("gram_keys", "rank_lcp", "perk_level", "ext_breaks",
+             "ext_fold", "rank_mask", "gather_big", "rowscan_cummax",
+             "rowscan_rcummin", "pack", "sync", "expand", "walk_tables",
+             "walk_entries", "walk_descent", "parse"),
     "raw": ("raw_heads", "rowscan_cumsum", "walk_tables",
             "walk_entries", "walk_descent", "rowscan_cummax", "expand"),
     "scan": ("scan_parse", "expand"),
-    "stream": ("perk_level", "ext_breaks", "ext_fold", "rank_mask",
-               "gather_big", "rowscan_rcummin"),
+    "stream": ("gram_keys", "rank_lcp", "perk_level", "ext_breaks",
+               "ext_fold", "rank_mask", "gather_big", "rowscan_rcummin"),
 }
 #: the stream phase's one-block entry points (encode_bytes and one
 #: encode_block_sync / decode_block_sync round trip) run the main path's
@@ -302,6 +303,8 @@ def phase_build() -> None:
 
 #: each kernel's wrapper (module, attribute) and its plain version
 WRAPPERS = {
+    "gram_keys": (sortmatch, "gram_keys", sortmatch.gram_keys_plain),
+    "rank_lcp": (sortmatch, "rank_lcp", sortmatch.rank_lcp_plain),
     "perk_level": (pcand, "perk_level", pcand.perk_level_plain),
     "ext_breaks": (pext, "ext_breaks", pext.ext_breaks_plain),
     "ext_fold": (pext, "ext_fold", pext.ext_fold_plain),
@@ -374,7 +377,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: take, counted as the records with output plus the end markers),
 #: counted from its definition
 #: and not from a kernel's code: a scan 1 (its operator); rank_mask 2
-#: (add, the exclusive difference); gather_big 2 (the clamp); perk_level 37:
+#: (add, the exclusive difference); gather_big 2 (the clamp); gram_keys 24
+#: (a 12-byte gram: 11 shifts and 11 ors over its bytes, two sign flips);
+#: rank_lcp 9 (the key0 XOR, its leading zeros and their bytes, the tie
+#: test, the same three and an add for key1, the cap); perk_level 37:
 #: the keys 5 (compare, select, max, shift, or), the row sort 14 (a
 #: comparison sort of N keys needs log2(N!) compares, 13.56 per key at
 #: the path's N = 32768, rounded up; bound by bytes either way) and the
@@ -410,7 +416,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: (``decode._chain_latency``), at the card's highest SM clock
 SCAN_CHAIN_INSTRUCTIONS = 9
 OPS_PER_ELEMENT = {
-    "perk_level": 5 + 14 + 18, "ext_breaks": 41, "ext_fold": 17,
+    "gram_keys": 24, "rank_lcp": 9, "perk_level": 5 + 14 + 18, "ext_breaks": 41, "ext_fold": 17,
     "rank_mask": 2, "gather_big": 2,
     "rowscan_cummax": 1, "rowscan_rcummin": 1, "rowscan_cumsum": 1,
     "walk_tables": 21, "walk_entries": 3 / 128, "walk_descent": 22 / 7,
@@ -462,6 +468,18 @@ def _bytes_moved(name: str, args: tuple, kw: dict, outs: tuple) -> int:
         heads = int(((packed >> 2) & 1).sum())
         capped = int(((packed >> 1) & 1).sum())
         return 4 * (3 * packed.numel() + heads - capped)
+    if name == "rank_lcp":
+        # s0 and perm read and plcp and p written at every rank; key1 read
+        # only at the ranks of a tie on the first 8 bytes
+        s0, key1, perm = args[:3]
+        touched = 0
+        if key1 is not None:
+            tie = s0[:, 1:] == s0[:, :-1]
+            near = torch.zeros_like(s0, dtype=torch.bool)
+            near[:, 1:] |= tie
+            near[:, :-1] |= tie
+            touched = int(near.sum()) * key1.element_size()
+        return 24 * s0.numel() + touched
     if name == "gather_big":
         # an index read and an output written per query, and each table
         # entry that the queries touch read once
@@ -486,11 +504,15 @@ def _compare(name: str, args: tuple, kw: dict, timed: bool) -> dict:
     want = want if isinstance(want, tuple) else (want,)
     err = 0
     for g, w in zip(got, want, strict=True):
+        if g is None and w is None:       # gram_keys' key1 of a short gram
+            continue
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{name}: kernel {g.dtype}{tuple(g.shape)} "
                                  f"vs plain {w.dtype}{tuple(w.shape)}")
         if g.numel():
             err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):     # an int64 difference that wraps
+                err = max(err, 1)
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain, "
                              f"max abs err {err}")
@@ -750,6 +772,34 @@ def phase_kernels(data: bytes, device: torch.device, native) -> dict:
         for e in res["at"]:
             del e["numel"]
     return results
+
+
+#: the gram kernels' timed row shapes beyond the paths': the benchmark's
+#: compress cells (a 32 MiB file's blocks, the IPComp burst's payload
+#: rows, the sessions' history-and-packet rows)
+GRAM_SHAPES = ((1024, 32768), (8192, 1500), (8192, 3547))
+
+
+def gram_timing(data: bytes, device: torch.device) -> None:
+    """gram_keys and rank_lcp beside their plain versions at GRAM_SHAPES,
+    on rows cut from the corpus (zero past 9/10 of each row): bitwise
+    equal, then kernel, bound and plain ms (CUDA events)."""
+    cap = spec.SEARCH_MATCH_MAX
+    for b, npos in GRAM_SHAPES:
+        flat = np.frombuffer((data * (b * npos // len(data) + 1))[:b * npos],
+                             np.uint8).reshape(b, npos).astype(np.int32)
+        flat[:, npos * 9 // 10:] = 0
+        x = torch.from_numpy(flat).to(device)
+        s0, key1, perm = sortmatch.gram_sort(x, cap)
+        for name, args in (("gram_keys", (x, cap)),
+                           ("rank_lcp", (s0, key1, perm, cap))):
+            e = _compare(name, args, {}, True)
+            log("kernels", f"{name} at {b} x {npos}: equal to plain "
+                f"(tolerance 0, bitwise), kernel {e['ms']:.4f} ms, plain "
+                f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']})")
+        del x, s0, key1, perm
+        torch.cuda.empty_cache()
 
 
 def _stage_breakdown(codec: BlockCodec, data: bytes) -> str:
@@ -1667,6 +1717,7 @@ def main() -> None:
     native = native_codec()
     timing = phase_kernels(data, device, native)
     torch.cuda.empty_cache()
+    gram_timing(data, device)
     counts = {}
     counts["main"], blob, codec = phase_main(data, device, native)
     counts["raw"], raw_ms = phase_raw(data, device, native)

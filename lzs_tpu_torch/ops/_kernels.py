@@ -63,6 +63,8 @@ _SIGNATURES = {
     "lzs_chain_latency": [_P, _I, _I],
     "lzs_raw_heads": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P, _I],
+    "lzs_gram_keys": [_P, _P, _P, _I, _I, _I],
+    "lzs_rank_lcp": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
 }
 
 
@@ -251,9 +253,15 @@ SCAN_PARSE = Kernel("scan_parse", "lzs_scan_parse",
 # head fields as jnp inside decode_batch_bits, which XLA fuses
 RAW_HEADS = Kernel("raw_heads", "lzs_raw_heads", "lzs_tpu_torch/csrc/heads.cu",
                    "lzs_tpu/ops/bitpar.py:155")
-KERNELS = (PERK_LEVEL, EXT_BREAKS, EXT_FOLD, RANK_MASK, GATHER_BIG,
-           CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES, WALK_DESCENT,
-           PACK, SYNC, EXPAND, PARSE, SCAN_PARSE, RAW_HEADS)
+# replace no pallas_call either: JAX builds the match search's gram words
+# and rank LCPs as jnp around its lax.sort
+GRAM_KEYS = Kernel("gram_keys", "lzs_gram_keys", "lzs_tpu_torch/csrc/gram.cu",
+                   "lzs_tpu/ops/sortmatch.py:74")
+RANK_LCP = Kernel("rank_lcp", "lzs_rank_lcp", "lzs_tpu_torch/csrc/gram.cu",
+                  "lzs_tpu/ops/sortmatch.py:197")
+KERNELS = (GRAM_KEYS, RANK_LCP, PERK_LEVEL, EXT_BREAKS, EXT_FOLD, RANK_MASK,
+           GATHER_BIG, CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES,
+           WALK_DESCENT, PACK, SYNC, EXPAND, PARSE, SCAN_PARSE, RAW_HEADS)
 
 
 def reset_launches() -> None:

@@ -1,13 +1,13 @@
 """Sort-based LZS match search, batched over blocks.
 
 Port of ``lzs_tpu.ops.sortmatch`` in the form the JAX package runs on its
-accelerator: ``candidates_batch`` runs the per-k glue of ``pcand`` (K1, a
-row sort and K2+K3, one kernel per level) and ``_extend_batch`` the
-extension scans of ``pext`` (K4, the probe tier, K5); the probe tier
-compacts its lanes into waves and runs on ``pgather.gather_big`` (K10),
-``pext.rcummin_rows`` (K7) and ``pext.rank_mask`` (K6). Each kernel
-stage launches a CUDA kernel on a CUDA tensor. Per position i of each
-block:
+accelerator: ``candidates_batch`` sorts the grams and runs the per-k glue
+of ``pcand`` (K1, a row sort and K2+K3, one kernel per level) and
+``_extend_batch`` the extension scans of ``pext`` (K4, the probe tier,
+K5); the probe tier compacts its lanes into waves and runs on
+``pgather.gather_big`` (K10), ``pext.rcummin_rows`` (K7) and
+``pext.rank_mask`` (K6). Each kernel stage launches a CUDA kernel on a
+CUDA tensor. Per position i of each block:
 
   score[i] = max k in [2, cap] such that the k-gram at i occurs at some
              j in [i - window, i - 1]             (capped greedy score)
@@ -18,9 +18,11 @@ The policy is byte-identical to the reference C encoders
 (lzs-compression.c:326-362); see ``lzs_tpu.ops.sortmatch`` for the
 derivation of every step. What differs here:
 
-  * The 12-byte gram sort is a chain of stable one-key sorts from the
-    last key to the first (torch.sort takes one key). Gram words are
-    uint32 values held in int64, since torch has no uint32 sort.
+  * The 12-byte gram sort is two stable one-key sorts (torch.sort takes
+    one key), the last 4 bytes first, on packed keys that ``gram_keys``
+    (``csrc/gram.cu``) builds with their sign bits flipped, since torch
+    has no unsigned sort; ``rank_lcp`` (the same file) reads the sorted
+    keys' rank LCPs.
   * The per-k position-restoring sort becomes a store by position inside
     ``pcand.perk_level``: the seg-sorted keys carry a permutation of the
     positions.
@@ -37,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from .. import spec, trace
-from . import pcand, pext, pgather
+from . import _kernels, pcand, pext, pgather
 
 _BIG = 0x3FFFFFFF
 _NO_LANE = 0x7FFFFFFF  # above every probe lane key i << 15 | doff
@@ -56,39 +58,124 @@ def clz32(z: torch.Tensor) -> torch.Tensor:
     return n + (z == 0)
 
 
-def _shift(x: torch.Tensor, s: int) -> torch.Tensor:
-    """x[..., i + s] with zero padding at the end (last axis)."""
-    if s == 0:
-        return x
-    return torch.cat([x[:, s:], torch.zeros_like(x[:, :s])], dim=1)
+_SIGN64 = torch.iinfo(torch.int64).min   # 1 << 63 as an int64 bit pattern
 
 
-def _gram_words(x: torch.Tensor, nwords: int) -> list[torch.Tensor]:
-    """Big-endian 4-byte gram words at each position: x int64 (B, N) byte
-    values -> nwords int64 (B, N) uint32 values (zeros past the end)."""
-    words = []
-    for w in range(nwords):
-        g = torch.zeros_like(x)
-        for t in range(4):
-            g = (g << 8) | _shift(x, 4 * w + t)
-        words.append(g)
-    return words
+def _lead_bytes(z: torch.Tensor, width: int) -> torch.Tensor:
+    """Leading zero bytes of width-byte values (int32 or int64 bit
+    patterns): width for 0."""
+    n = torch.zeros(z.shape, dtype=torch.int32, device=z.device)
+    for t in range(1, width + 1):
+        n += (z & -(1 << 8 * (width - t))) == 0    # the top t bytes
+    return n
 
 
-def _rank_lcp_rows(words: list[torch.Tensor], cap: int) -> torch.Tensor:
-    """Byte LCP (capped at cap) of rank-adjacent sorted gram words; entry
-    0 of every row is 0."""
-    b, npos = words[0].shape
-    lcp = torch.full((b, npos), cap, dtype=torch.int32, device=words[0].device)
-    consumed = torch.zeros((b, npos), dtype=torch.bool, device=lcp.device)
-    for wi, col in enumerate(words):
-        prev = torch.cat([col[:, :1] ^ 0xFFFFFFFF, col[:, :-1]], dim=1)
-        z = col ^ prev
-        here = (4 * wi + (clz32(z) >> 3)).to(torch.int32)
-        differs = z != 0
-        lcp = torch.where(differs & ~consumed, here.clamp(max=cap), lcp)
-        consumed = consumed | differs
-    return lcp
+def _key_bytes(cap: int) -> int:
+    """The bytes of a cap-byte gram's keys: cap rounded up to a word."""
+    if not spec.MIN_MATCH <= cap <= 16:
+        raise ValueError(f"cap {cap} outside [{spec.MIN_MATCH}, 16]")
+    return 4 * -(-cap // 4)
+
+
+def gram_keys_plain(x: torch.Tensor, cap: int):
+    """Plain form of ``gram_keys``: shifts and ors of the bytes."""
+    nbytes = _key_bytes(cap)
+    b, npos = x.shape
+    xe = torch.cat([x.to(torch.int64) & 0xFF,
+                    x.new_zeros((b, nbytes), dtype=torch.int64)], 1)
+
+    def word(lo: int, hi: int) -> torch.Tensor:
+        """Bytes lo..hi-1 of every gram, big-endian."""
+        v = xe[:, lo:lo + npos]
+        for t in range(lo + 1, hi):
+            v = (v << 8) | xe[:, t:t + npos]
+        return v
+
+    head = min(nbytes, 8)
+    key0 = (word(0, head) << 8 * (8 - head)) ^ _SIGN64
+    if nbytes <= 8:
+        return key0, None
+    if nbytes == 12:
+        return key0, (word(8, 12) - (1 << 31)).to(torch.int32)
+    return key0, word(8, 16) ^ _SIGN64
+
+
+def gram_keys(x: torch.Tensor, cap: int):
+    """The gram sort's keys of every position: x int32 (B, N) byte values
+    -> (key0, key1) of grams of ``cap`` bytes rounded up to a word. key0:
+    int64 (B, N), bytes i..i+7 big-endian XOR 1 << 63, so that its signed
+    order is the bytes' order; key1: bytes i+8..i+11 XOR 1 << 31 as int32
+    where the gram has 12 bytes, bytes i+8..i+15 XOR 1 << 63 as int64
+    where it has 16, None where it has 4 or 8. Bytes at or past N and past
+    the gram read 0. One launch of ``csrc/gram.cu`` on a CUDA tensor."""
+    nbytes = _key_bytes(cap)
+    if _kernels.on_cpu(x):
+        return gram_keys_plain(x, cap)
+    _kernels.check(x, "x", torch.int32)
+    b, npos = x.shape
+    key0 = torch.empty((b, npos), dtype=torch.int64, device=x.device)
+    key1 = None if nbytes <= 8 else torch.empty(
+        (b, npos), dtype=torch.int32 if nbytes == 12 else torch.int64,
+        device=x.device)
+    if b and npos:
+        _kernels.GRAM_KEYS.launch(
+            x.device, x.data_ptr(), key0.data_ptr(),
+            None if key1 is None else key1.data_ptr(), b, npos, nbytes)
+    return key0, key1
+
+
+def rank_lcp_plain(s0: torch.Tensor, key1: torch.Tensor | None,
+                   perm: torch.Tensor, cap: int):
+    """Plain form of ``rank_lcp``."""
+    lcp = _lead_bytes(s0[:, 1:] ^ s0[:, :-1], 8)
+    if key1 is not None:
+        k1 = key1.gather(1, perm)
+        tail = _lead_bytes(k1[:, 1:] ^ k1[:, :-1], key1.element_size())
+        lcp = torch.where(lcp == 8, 8 + tail, lcp)
+    plcp = torch.cat([lcp.new_zeros((len(lcp), 1)), lcp.clamp(max=cap)], 1)
+    return plcp, perm.to(torch.int32)
+
+
+def rank_lcp(s0: torch.Tensor, key1: torch.Tensor | None,
+             perm: torch.Tensor, cap: int):
+    """(plcp, p) int32 (B, N) of rows sorted by (key0, key1, position):
+    s0 the sorted key0, key1 the unsorted ``gram_keys`` key1 (or None),
+    perm the sorted positions (int64). plcp[r] is the leading equal bytes
+    of the grams at ranks r and r - 1, capped at ``cap`` (0 at rank 0);
+    p is perm as int32. One launch of ``csrc/gram.cu`` on a CUDA tensor."""
+    operands = (s0, perm) if key1 is None else (s0, key1, perm)
+    if _kernels.on_cpu(*operands):
+        return rank_lcp_plain(s0, key1, perm, cap)
+    _kernels.check(s0, "s0", torch.int64)
+    b, npos = s0.shape
+    _kernels.check(perm, "perm", torch.int64, (b, npos))
+    if key1 is not None:
+        _kernels.check(key1, "key1", torch.int64 if key1.dtype == torch.int64
+                       else torch.int32, (b, npos))
+    plcp = torch.empty((b, npos), dtype=torch.int32, device=s0.device)
+    p = torch.empty_like(plcp)
+    if b and npos:
+        _kernels.RANK_LCP.launch(
+            s0.device, s0.data_ptr(),
+            None if key1 is None else key1.data_ptr(), perm.data_ptr(),
+            plcp.data_ptr(), p.data_ptr(), b, npos,
+            0 if key1 is None else key1.element_size(), cap)
+    return plcp, p
+
+
+def gram_sort(x: torch.Tensor, cap: int):
+    """(s0, key1, perm) of x int32 (B, N) byte values, for ``rank_lcp``:
+    the ``gram_keys`` of grams of ``cap`` bytes, every row's positions
+    sorted by (key0, key1, position) in stable sorts from the last key to
+    the first; s0 the sorted key0, key1 unsorted (or None), perm the
+    sorted positions (int64)."""
+    key0, key1 = gram_keys(x.contiguous(), cap)
+    if key1 is None:
+        s0, perm = torch.sort(key0, dim=1, stable=True)
+        return s0, None, perm
+    order = torch.sort(key1, dim=1, stable=True).indices
+    s0, step = torch.sort(key0.gather(1, order), dim=1, stable=True)
+    return s0, key1, order.gather(1, step)
 
 
 def candidates_batch(x: torch.Tensor, n: torch.Tensor, *,
@@ -99,21 +186,8 @@ def candidates_batch(x: torch.Tensor, n: torch.Tensor, *,
     x: int32[B, N] byte values (zeros past ``n``), N <= 32768; n: int32[B].
     Returns (score, off): int32[B, N] each (off = 0 where no match).
     """
-    b, npos = x.shape
-    pext.check_npos(npos)
-    if not spec.MIN_MATCH <= cap <= 16:
-        raise ValueError(f"cap {cap} outside [{spec.MIN_MATCH}, 16]")
-    nwords = -(-cap // 4)
-    words = _gram_words(x.to(torch.int64), nwords)
-
-    # lexicographic order of (word 0, ..., word nwords-1, position)
-    perm = torch.arange(npos, device=x.device).expand(b, npos)
-    for col in reversed(words):
-        order = torch.sort(col.gather(1, perm), dim=1, stable=True).indices
-        perm = perm.gather(1, order)
-    plcp = _rank_lcp_rows([col.gather(1, perm) for col in words], cap)
-    p = perm.to(torch.int32)
-
+    pext.check_npos(x.shape[1])
+    plcp, p = rank_lcp(*gram_sort(x, cap), cap)
     return pcand.perk_candidates(plcp, p, n, kmin=spec.MIN_MATCH, kmax=cap,
                                  window=window)
 

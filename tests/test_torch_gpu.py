@@ -50,7 +50,12 @@ whose run of extension nibbles spans some 2.5 input windows;
 DistributedCodec on an NCCL world of one equals BlockCodec; and the
 session codec (one carried history a link) at batch 33 equals its CPU
 form call for call, its histories too, while ``encode_batch`` with a
-zero ``start`` launches what it launches without one.
+zero ``start`` launches what it launches without one. The match search's
+gram kernels (``gram_keys``, ``rank_lcp``) equal their plain forms at
+caps 2 to 16 (no key1, an int32 one, an int64 one) on rows of one byte,
+rows that a tile crosses, 1 x 32768, 256 x 32768, 8192 x 1500 and 8192 x
+3547, and ``candidates_batch`` on the card equals the CPU's on a
+256-block container of 32768-byte rows and on 8192 session rows.
 """
 
 import json
@@ -345,6 +350,68 @@ def test_perk_level_position_missing_from_p_keeps_pk(cuda, w):
     pk = _rows(w + 1, 2, w, cuda).clamp_min(-1)
     assert torch.equal(pcand.perk_level(plcp, p, n, pk, 2, 2047), pk)
     assert torch.equal(pcand.perk_level_plain(plcp, p, n, pk, 2, 2047), pk)
+
+
+def _gram_rows(seed, b, w, dev):
+    """Text-like rows with bytes on both sides of the sign bit and random
+    bytes, every other row zero past 9/10 of its width."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(97, 101, (b, w))
+    pick = rng.random((b, w))
+    sign, rand = pick < 0.1, pick > 0.97
+    x[sign] = rng.choice([0x00, 0x7F, 0x80, 0xFF], int(sign.sum()))
+    x[rand] = rng.integers(0, 256, int(rand.sum()))
+    x[1::2, w * 9 // 10:] = 0
+    return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("cap", [2, 8, 9, 12, 13, 16])
+@pytest.mark.parametrize("b,w", [(3, 1), (33, 1000), (1, 32768),
+                                 (256, 32768), (8192, 1500), (8192, 3547)])
+def test_gram_kernels(cuda, b, w, cap):
+    """gram_keys and rank_lcp, one launch a call, bitwise their plain forms
+    on the same CUDA tensors: no key1 (cap <= 8), an int32 key1 and an
+    int64 one; a row of one, rows that a CTA's tile crosses, the stream's
+    batch 1 and the compress cells' shapes."""
+    x = _gram_rows(b * w + cap, b, w, cuda)
+    launches = (_kernels.GRAM_KEYS.launches, _kernels.RANK_LCP.launches)
+    key0, key1 = sortmatch.gram_keys(x, cap)
+    want0, want1 = sortmatch.gram_keys_plain(x, cap)
+    _equal([key0], [want0])
+    assert (key1 is None) == (want1 is None) == (cap <= 8)
+    if key1 is not None:
+        _equal([key1], [want1])
+    del key0, key1, want0, want1
+    s0, key1, perm = sortmatch.gram_sort(x, cap)
+    got = sortmatch.rank_lcp(s0, key1, perm, cap)
+    _equal(got, sortmatch.rank_lcp_plain(s0, key1, perm, cap))
+    assert (_kernels.GRAM_KEYS.launches, _kernels.RANK_LCP.launches) == (
+        launches[0] + 2, launches[1] + 1)
+
+
+@pytest.mark.parametrize("rows", ["container", "sessions"])
+def test_candidates_batch_on_card_equals_cpu(cuda, rows):
+    """The match search's candidates on the card equal the CPU's on a
+    256-block container's 32768-byte rows and on 8192 session rows of
+    3547 bytes (a 2047-byte history and an IMIX packet, zero past it)."""
+    if rows == "container":
+        b, w = 256, 32768
+        x = np.frombuffer(_corpus_like(22, b * w - 100), np.uint8)
+        x = np.concatenate([x, np.zeros(100, np.uint8)]).reshape(b, w)
+        n = np.full(b, w)
+        n[-1] = w - 100
+    else:
+        b, w = 8192, 3547
+        rng = np.random.default_rng(22)
+        x = np.frombuffer(_corpus_like(23, b * w), np.uint8).reshape(b, w)
+        n = 2047 + rng.choice([40, 576, 1500], b, p=[7 / 12, 4 / 12, 1 / 12])
+        x = np.where(np.arange(w) < n[:, None], x, 0)
+    x = torch.from_numpy(x.astype(np.int32))
+    n = torch.from_numpy(n.astype(np.int32))
+    before = _kernels.GRAM_KEYS.launches
+    got = sortmatch.candidates_batch(x.to(cuda), n.to(cuda))
+    assert _kernels.GRAM_KEYS.launches == before + 1
+    _equal([g.cpu() for g in got], sortmatch.candidates_batch(x, n))
 
 
 @pytest.mark.parametrize("b,w", [(33, 1000), (5, 1025), (256, 32768)])
@@ -1291,6 +1358,8 @@ def test_wrappers_reject_bad_operands(cuda):
 
 #: the match search's kernel wrappers and their plain versions
 _SEARCH_KERNELS = {
+    "gram_keys": (sortmatch, "gram_keys", sortmatch.gram_keys_plain),
+    "rank_lcp": (sortmatch, "rank_lcp", sortmatch.rank_lcp_plain),
     "perk_level": (pcand, "perk_level", pcand.perk_level_plain),
     "ext_breaks": (pext, "ext_breaks", pext.ext_breaks_plain),
     "ext_fold": (pext, "ext_fold", pext.ext_fold_plain),
@@ -1343,7 +1412,8 @@ def test_stream_search_kernels_at_batch_1(cuda, monkeypatch, pool, backend):
         monkeypatch.undo()
         names = {c[0] for c in calls}
         if backend == "sort":
-            assert {"perk_level", "ext_breaks", "ext_fold"} <= names
+            assert {"gram_keys", "rank_lcp", "perk_level", "ext_breaks",
+                    "ext_fold"} <= names
         else:
             assert names == {"rcummin_rows"}
         _check_recorded(calls)
