@@ -80,11 +80,6 @@
 // Warp 4 leaves at once, so the walker has its SM sub-partition (warp id
 // mod 4) to itself: with the copy warp there it took 1-2% more cycles a
 // step.
-//
-// With `stats` (int64[B, 2]) the walker also writes its clock64 cycles
-// from its first step to its last and its step count. lzs_chain_latency,
-// a launch of one thread, times a chain of kProbeOps dependent funnel
-// shifts and adds, the latency of one link of the walker's chain.
 #include "async.cuh"
 #include "scan.cuh"
 
@@ -107,7 +102,6 @@ constexpr uint32_t kRingWords = kByteSlots * kSlotWords;
 constexpr int kGroup = 8;
 constexpr uint32_t kEarly = kGroup + 3;
 constexpr int kConsumerBarrier = 1;          // named barrier of the consumers
-constexpr int kProbeOps = 2 * 16 * 64;       // the latency probe's chain
 constexpr size_t kSmemBytes =
     static_cast<size_t>(kByteSlots) * kSlotBytes +
     static_cast<size_t>(kStepSlots) * kChunk * sizeof(int2);
@@ -234,8 +228,7 @@ __device__ __forceinline__ int head_need(uint32_t w) {
 // max_units, or at a chunk's end once the consumers found the output
 // full.
 __device__ void walk(const uint32_t* ring, int2* steps, Shared& s, int m,
-                     int inbits, int max_units, bool multi,
-                     long long* stats) {
+                     int inbits, int max_units, bool multi) {
   int64_t next_chunk = 0;          // the byte chunk the walker waits for next
   uint32_t ready = 0;              // words below it are in the ring
   auto enter = [&]() {
@@ -263,7 +256,6 @@ __device__ void walk(const uint32_t* ring, int2* steps, Shared& s, int m,
   const bool final_marker = !multi;
   bool stop = max_units <= 0;
   int t0 = 0;                      // steps before this chunk
-  const long long start = clock64();
   for (int chunk = 0;; ++chunk) {
     const int slot = chunk % kStepSlots;
     if (chunk >= kStepSlots)
@@ -319,10 +311,6 @@ __device__ void walk(const uint32_t* ring, int2* steps, Shared& s, int m,
     lzs::mbar_arrive(&s.step_full[slot]);
     t0 += n;
     if (last) break;
-  }
-  if (stats != nullptr) {
-    stats[2 * blockIdx.x] = clock64() - start;
-    stats[2 * blockIdx.x + 1] = t0;
   }
   volatile_store(&s.walker_done, 1);
 }
@@ -584,8 +572,7 @@ __global__ void __launch_bounds__(kScanThreads)
 scan_parse_kernel(const uint8_t* __restrict__ comp, int64_t c,
                   const int* __restrict__ inbytes, int max_units,
                   int out_cap, bool multi_stream, Store store,
-                  int* __restrict__ out_len, int* __restrict__ markers,
-                  long long* __restrict__ stats) {
+                  int* __restrict__ out_len, int* __restrict__ markers) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Shared s;
   const int64_t b = blockIdx.x;
@@ -616,7 +603,7 @@ scan_parse_kernel(const uint8_t* __restrict__ comp, int64_t c,
       const int inbits =
           static_cast<int>(static_cast<unsigned>(__ldg(inbytes + b)) * 8u);
       walk(reinterpret_cast<const uint32_t*>(ring), steps, s, m, inbits,
-           max_units, multi_stream, stats);
+           max_units, multi_stream);
     }
   } else if (warp != 4) {
     const int ct = (warp == 6 ? 3 : warp - 1) * 32 + (threadIdx.x & 31);
@@ -629,44 +616,26 @@ template <class Store>
 cudaError_t launch_scan(int rows, cudaStream_t stream, const uint8_t* comp,
                         int c, const int* inbytes, int max_units, int out_cap,
                         bool multi_stream, const Store& store, int* out_len,
-                        int* markers, long long* stats) {
+                        int* markers) {
   const cudaError_t err = cudaFuncSetAttribute(
       scan_parse_kernel<Store>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   scan_parse_kernel<Store><<<rows, kScanThreads, kSmemBytes, stream>>>(
       comp, c, inbytes, max_units, out_cap, multi_stream, store, out_len,
-      markers, stats);
+      markers);
   return cudaGetLastError();
-}
-
-// clock64 cycles of kProbeOps dependent instructions, a funnel shift and
-// an add in turn (each one SASS instruction), on values the compiler
-// cannot know.
-__global__ void chain_latency_kernel(long long* out, int a, int b) {
-  uint32_t x = static_cast<uint32_t>(a);
-  const uint32_t y = static_cast<uint32_t>(b) | 1u;
-  const long long t = clock64();
-#pragma unroll 1
-  for (int i = 0; i < kProbeOps / 32; ++i) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      asm volatile("shf.l.wrap.b32 %0, %0, %1, %0;\n\tadd.s32 %0, %0, %1;"
-                   : "+r"(x) : "r"(y));
-  }
-  out[0] = clock64() - t;
-  out[1] = x;                      // the chain's end, so that it stays
 }
 
 }  // namespace
 
 // width 0: JAX's step-major records (rows of max_units) into `recs`; else
 // the filled rows of `width` int32 (a multiple of 4, at least max_units,
-// 16-byte aligned) into `recs`. `stats` may be null.
+// 16-byte aligned) into `recs`.
 LZS_API int lzs_scan_parse(const uint8_t* comp, const int* inbytes, int rows,
                            int c, int max_units, int out_cap, int multi_stream,
                            int* recs, int width, int* out_len, int* markers,
-                           long long* stats, int device, void* stream) {
+                           int device, void* stream) {
   const lzs::DeviceGuard guard(device);
   if (rows < 1 || c < 0 || max_units < 0 || out_cap < 1 || width < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -677,23 +646,12 @@ LZS_API int lzs_scan_parse(const uint8_t* comp, const int* inbytes, int rows,
         max_units % 4 == 0 && reinterpret_cast<uintptr_t>(recs) % 16 == 0;
     return static_cast<int>(launch_scan(rows, s, comp, c, inbytes, max_units,
                                         out_cap, multi, StepMajor{recs, vec},
-                                        out_len, markers, stats));
+                                        out_len, markers));
   }
   if (width % 4 != 0 || width < max_units ||
       reinterpret_cast<uintptr_t>(recs) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_scan(rows, s, comp, c, inbytes, max_units,
                                       out_cap, multi, Filled{recs, width},
-                                      out_len, markers, stats));
-}
-
-// out: int64[2], the clock64 cycles of kProbeOps dependent instructions
-// (chain_latency_kernel), one thread alone on the card, and the chain's
-// last value.
-LZS_API int lzs_chain_latency(long long* out, int a, int b, int device,
-                              void* stream) {
-  const lzs::DeviceGuard guard(device);
-  const auto s = static_cast<cudaStream_t>(stream);
-  chain_latency_kernel<<<1, 1, 0, s>>>(out, a, b);
-  return static_cast<int>(cudaGetLastError());
+                                      out_len, markers));
 }

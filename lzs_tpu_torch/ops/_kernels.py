@@ -59,8 +59,7 @@ _SIGNATURES = {
                       _P, _P, _P],
     "lzs_expand_rows": [_P, _P, _I, _I, _P, _I, _P],
     "lzs_parse_lanes": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
-    "lzs_scan_parse": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
-    "lzs_chain_latency": [_P, _I, _I],
+    "lzs_scan_parse": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "lzs_raw_heads": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P, _I],
     "lzs_gram_keys": [_P, _P, _P, _I, _I, _I],

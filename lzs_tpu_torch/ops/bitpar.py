@@ -84,9 +84,11 @@ MAX_WIDE_OUT_CAP = 1 << 30
 #: decodes; a padded input at most this wide decodes in one pass at an
 #: out_cap up to ``_ROW``. A
 #: window's span peaked at 5.06 GiB of device memory at 2^23, 10.13 at
-#: 2^24 and 18.78 at 2^25, at the same speed (scripts/raw_windows.py on
-#: an H100), while the heads stage was plain torch; with the heads kernel
-#: it peaks at 3.20 GiB over its input at 2^23 (chip_smoke.py)
+#: 2^24 and 18.78 at 2^25, at the same speed (a sweep of this width on an
+#: H100, decoding the C encoder's blocks of the 8 MiB bench corpus
+#: repeated to 43.8 MB; CHANGES.md), while the heads stage was plain
+#: torch; with the heads kernel it peaks at 3.20 GiB over its input at
+#: 2^23
 _WIN = 1 << 23
 #: input bytes a window reads past its new bytes: a head that starts in
 #: the new bytes is decided there if its successor lies inside the span

@@ -164,8 +164,7 @@ def _parse_scan_filled_plain(comp: torch.Tensor, inbytes: torch.Tensor, *,
 
 
 def _launch_scan(comp: torch.Tensor, inbytes: torch.Tensor, width: int, *,
-                 out_cap: int, max_units: int, multi_stream: bool,
-                 stats: torch.Tensor | None = None):
+                 out_cap: int, max_units: int, multi_stream: bool):
     """One launch of csrc/scan_parse.cu: width 0 writes the step-major
     records (rows of max_units), else the filled rows of ``width``."""
     b = _check_scan(comp, inbytes)
@@ -176,8 +175,7 @@ def _launch_scan(comp: torch.Tensor, inbytes: torch.Tensor, width: int, *,
         _kernels.SCAN_PARSE.launch(
             comp.device, comp.data_ptr(), inbytes.data_ptr(), b,
             comp.shape[1], max_units, out_cap, int(multi_stream),
-            out.data_ptr(), width, out_len.data_ptr(), markers.data_ptr(),
-            0 if stats is None else stats.data_ptr())
+            out.data_ptr(), width, out_len.data_ptr(), markers.data_ptr())
     return out, out_len, markers
 
 
@@ -220,41 +218,6 @@ def _parse_scan_filled(comp: torch.Tensor, inbytes: torch.Tensor, *,
     return _launch_scan(comp, inbytes, decode2._flat_width(max_units),
                         out_cap=out_cap, max_units=max_units,
                         multi_stream=multi_stream)
-
-
-def _scan_walker_stats(comp: torch.Tensor, inbytes: torch.Tensor, *,
-                       out_cap: int, max_units: int,
-                       multi_stream: bool = False) -> torch.Tensor:
-    """A measurement of ``_parse_scan_filled`` on the card: int64[B, 2],
-    per stream the walker's clock64 cycles from its first step to its last
-    and its step count (CUDA tensors only)."""
-    stats = torch.zeros((comp.shape[0], 2), dtype=torch.int64,
-                        device=comp.device)
-    _launch_scan(comp, inbytes, decode2._flat_width(max_units),
-                 out_cap=out_cap, max_units=max_units,
-                 multi_stream=multi_stream, stats=stats)
-    return stats
-
-
-#: the dependent instructions that lzs_chain_latency times
-#: (csrc/scan_parse.cu kProbeOps)
-_PROBE_OPS = 2 * 16 * 64
-
-
-def _chain_latency(device: torch.device) -> float:
-    """A measurement on the card: the clock64 cycles of one link of a
-    chain of dependent funnel shifts and adds, which one thread alone
-    times (csrc/scan_parse.cu lzs_chain_latency). Not a kernel of any
-    path: it counts no launch."""
-    out = torch.zeros(2, dtype=torch.int64, device=device)
-    lib = _kernels.LIBRARY.get()
-    err = lib.lzs_chain_latency(
-        out.data_ptr(), 12345, 7, device.index,
-        torch._C._cuda_getCurrentRawStream(device.index))
-    if err != 0:
-        msg = lib.lzs_error_string(err).decode()
-        raise _kernels.KernelError(f"lzs_chain_latency failed: {msg} ({err})")
-    return int(out[0]) / _PROBE_OPS
 
 
 def _decode_scan(comp: torch.Tensor, inbytes: torch.Tensor, *, out_cap: int,

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Kernels of the port on their paths' own inputs: event, device, host and
-cold-cache times, beside the plain version and the library call.
+cold-cache times, beside the plain version, the library call and the
+kernel's bound.
 
-Records every call of the named kernels' wrappers (``chip_smoke.py``'s
-``recorded_calls``) in one greedy compress + decompress of the frozen
-8 MiB corpus (path ``main``), one ``decode_batch_raw`` of its raw
-per-block payload (``raw``), one 2^18 ``decode_block`` of a C-encoded
-slice (``raw 2^18``) and one ``decode_batch(engine="scan")`` of the raw
-payload (``scan``), and for the first call of each set of shapes times,
-on that call's own tensors:
+Records every call of the named kernels' wrappers on the paths main,
+raw and scan of ``chip_smoke.py`` (``chip_smoke.run_paths``: one greedy
+compress + decompress of the frozen 8 MiB corpus and a second compress;
+one ``decode_batch_raw`` of its raw per-block payload and one 2^18
+``decode_block`` of a C-encoded slice; ``decode_batch(engine="scan")``
+of the raw payload, whole and cut by a step budget). The first call of
+each set of shapes is held bitwise to the plain version and timed on its
+own tensors:
 
-  event_ms       CUDA-event mean over --reps back-to-back calls, as
-                 chip_smoke.py times kernels (it includes the host's
-                 launch cost wherever the host issues slower than the card
-                 runs)
+  event_ms       CUDA-event mean over --reps back-to-back calls (it
+                 includes the host's launch cost wherever the host issues
+                 slower than the card runs)
   device_ms      device kernel time per call (torch.profiler over --reps
                  calls: every kernel the call launched, nothing of the
                  host)
@@ -29,23 +30,30 @@ on that call's own tensors:
                  mean over --reps such calls
   cold_device_ms (kernel only) the device time of the same calls, summed
                  over the kernels a warm call launches
+  bound_ms       (kernel only) the least time of the call's function on an
+                 H100: the larger of the bytes it must move over the memory
+                 peak and its int32 operations over the int32 peak
+                 (``chip_smoke.bound``: ``portbench/roofline.py``'s peaks
+                 and ``OPS_PER_ELEMENT``, ``chip_smoke.OWN_OPS`` for the
+                 kernels that table lacks), and ``bound_by``, which of
+                 the two
 
 for the kernel's wrapper ("kernel"), its plain torch version ("plain",
 event time over --plain-reps calls, none where 0: the scan parse's
 plain loop takes seconds a call) and, where one PyTorch call computes
-the same function (chip_smoke.LIBRARY), that call ("library"); event and
-device time of a context call (chip_smoke.CONTEXT: ext_fold's
-torch.cummax of its prologue) where there is one ("context").
+the same function (``LIBRARY``), that call ("library"); event and
+device time of a context call (``CONTEXT``: ext_fold's torch.cummax of
+its prologue) where there is one ("context").
 
-Run from the root of a checkout, on a machine with one CUDA device (an
-earlier commit's tree runs its own copy of chip_smoke.py's helpers: copy
-this script into its scripts/):
+Run from the root of a checkout, on a machine with one CUDA device (to
+compare two commits, run each tree's own copy):
 
     python3 scripts/kernel_bench.py [--kernels ext_fold parse]
         [--reps 50] [--plain-reps 3] [--flush-mib 256]
 
 (the kernels default to the chained row scans: rowscan_rcummin,
-rowscan_cummax and rowscan_cumsum).
+rowscan_cummax and rowscan_cumsum; any key of ``WRAPPERS`` may be
+named).
 
 Prints the card's name and power limit, then one JSON line per shape.
 Imports nothing of jax.
@@ -54,6 +62,7 @@ Imports nothing of jax.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import pathlib
@@ -66,10 +75,37 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BLOCK, SIZE, WRAPPERS, _as_tuple, _shape_key, bound, event_ms, run_paths)
 from lzs_tpu_torch.blocks import BlockCodec  # noqa: E402
-from lzs_tpu_torch.ops import _kernels, bitpar, decode  # noqa: E402
+from lzs_tpu_torch.ops import _kernels, pext  # noqa: E402
+
+#: the PyTorch call that computes a kernel's function, where there is one
+#: (timed beside the kernel as a yardstick; the port never calls it): each
+#: entry takes the call's arguments and returns the call, ready to time.
+#: torch.gather takes int64 indices only, so gather_big's are widened
+#: before the timing (the clamp is a no-op on the path's in-range indices).
+#: No one PyTorch call computes the lane parse or ext_fold.
+LIBRARY = {
+    "rowscan_cummax": lambda v: functools.partial(torch.cummax, v, dim=1),
+    "rowscan_rcummin": lambda v: lambda: torch.cummin(
+        v.flip(1), dim=1).values.flip(1),
+    "rowscan_cumsum": lambda v, tile=0: functools.partial(
+        torch.cumsum, v, dim=1, dtype=torch.int32),
+    "gather_big": lambda tab, idx: functools.partial(
+        torch.gather, tab, 1, idx.clamp(0, tab.shape[1] - 1).long()),
+}
+
+#: a PyTorch call timed beside a kernel for context (not its library
+#: call): ext_fold's scan alone, torch.cummax of the values its prologue
+#: prepares, without the prologue's and epilogue's bytes
+CONTEXT = {
+    "ext_fold": ("torch.cummax of the prologue",
+                 lambda packed, ext_h, score, cap: functools.partial(
+                     torch.cummax, pext.fold_prologue(packed, ext_h, cap),
+                     dim=1)),
+}
 
 
 def _kernel_events(fn, reps: int, before=None) -> list[dict]:
@@ -103,10 +139,6 @@ def device_ms(fn, reps: int, before=None, names=None) -> float:
     return total_us / 1e3 / reps
 
 
-def event_ms(fn, reps: int) -> float:
-    return chip_smoke.cuda_ms(fn, reps)
-
-
 def cold_event_ms(fn, reps: int, flush) -> float:
     """Mean CUDA-event ms of one call issued right after ``flush()``."""
     fn()
@@ -134,36 +166,17 @@ def host_us(fn, reps: int) -> float:
     return dt / reps * 1e6
 
 
-def _as_tuple(out) -> tuple:
-    return out if isinstance(out, tuple) else (out,)
-
-
 def record(kernels: list[str], data: bytes, device: torch.device) -> dict:
-    """The recorded calls of ``kernels`` per path, first call of each set
-    of shapes (chip_smoke's paths and recorder)."""
-    native_compress, _ = chip_smoke.native_codec()
-    codec = BlockCodec(block=chip_smoke.BLOCK, device=device)
+    """The recorded calls of ``kernels`` on the paths main, raw and scan
+    (``chip_smoke.run_paths``), the first call of each set of shapes."""
+    codec = BlockCodec(block=BLOCK, device=device)
     codec.decompress(codec.compress(data))            # build + warm up
-    calls = {}
-    with chip_smoke.recorded_calls() as calls["main"]:
-        codec.decompress(codec.compress(data))
-    comp, clen, _, _ = chip_smoke.raw_payload(codec, data, device)
-    with chip_smoke.recorded_calls() as calls["raw"]:
-        codec.decode_batch_raw(comp, clen)
-    with chip_smoke.recorded_calls() as calls["raw 2^18"]:
-        decode.decode_bytes(native_compress(chip_smoke.wide_piece(data)),
-                            bitpar.MAX_OUT_CAP, device=device)
-    # absent from an earlier tree's chip_smoke.py and decode
-    if "scan_parse" in chip_smoke.WRAPPERS:
-        with chip_smoke.recorded_calls() as calls["scan"]:
-            decode.decode_batch(comp, clen, out_cap=chip_smoke.BLOCK,
-                                engine="scan")
-    torch.cuda.synchronize()
+    calls, _ = run_paths(("main", "raw", "scan"), data, device)
     picked = {}
     for path, by_kernel in calls.items():
         for name in kernels:
             for args, kw in by_kernel[name]:
-                key = (name, path, chip_smoke._shape_key(args, kw))
+                key = (name, path, _shape_key(args, kw))
                 picked.setdefault(key, (args, kw))
     return picked
 
@@ -184,7 +197,7 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
     device = torch.device("cuda", 0)
-    data = make_corpus(chip_smoke.SIZE)
+    data = make_corpus(SIZE)
     if hashlib.sha256(data).hexdigest() != CORPUS_SHA:
         raise SystemExit("corpus drift")
     flush_buf = torch.empty(args.flush_mib << 20, dtype=torch.uint8,
@@ -195,15 +208,16 @@ def main() -> None:
 
     for (name, path, shape), (a, kw) in record(args.kernels, data,
                                                device).items():
-        module, attr, plain = chip_smoke.WRAPPERS[name]
+        module, attr, plain = WRAPPERS[name]
         wrapper = getattr(module, attr)
 
         def kernel():
             return wrapper(*a, **kw)
 
-        if not all(torch.equal(g, w) for g, w in zip(
-                _as_tuple(kernel()), _as_tuple(plain(*a, **kw)),
-                strict=True)):
+        got = _as_tuple(kernel())
+        # gram_keys' key1 is None where the gram fits in key0
+        if not all(g is w is None or torch.equal(g, w) for g, w in zip(
+                got, _as_tuple(plain(*a, **kw)), strict=True)):
             raise SystemExit(f"{name} differs from plain at {shape}")
         names = {e["name"] for e in _kernel_events(kernel, 1)}
         first = next(t for t in a if torch.is_tensor(t))
@@ -218,20 +232,19 @@ def main() -> None:
                           "cold_event_ms": cold_event_ms(kernel, args.reps,
                                                          flush),
                           "cold_device_ms": device_ms(kernel, args.reps,
-                                                      flush, names)},
+                                                      flush, names),
+                          **bound(name, a, kw, got)},
                "plain": ({"event_ms": event_ms(lambda: plain(*a, **kw),
                                                args.plain_reps)}
                          if args.plain_reps > 0 else None)}
-        library = chip_smoke.LIBRARY.get(name)
+        library = LIBRARY.get(name)
         if library is not None:
             call = library(*a, **kw)
             row["library"] = {"event_ms": event_ms(call, args.reps),
                               "device_ms": device_ms(call, args.reps),
                               "host_us": host_us(call, args.reps)}
-        # chip_smoke.CONTEXT is absent from an earlier tree's copy
-        label, context = getattr(chip_smoke, "CONTEXT", {}).get(
-            name, (None, None))
-        if context is not None:
+        if name in CONTEXT:
+            label, context = CONTEXT[name]
             call = context(*a, **kw)
             row["context"] = {"call": label,
                               "event_ms": event_ms(call, args.reps),

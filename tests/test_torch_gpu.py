@@ -55,7 +55,11 @@ gram kernels (``gram_keys``, ``rank_lcp``) equal their plain forms at
 caps 2 to 16 (no key1, an int32 one, an int64 one) on rows of one byte,
 rows that a tile crosses, 1 x 32768, 256 x 32768, 8192 x 1500 and 8192 x
 3547, and ``candidates_batch`` on the card equals the CPU's on a
-256-block container of 32768-byte rows and on 8192 session rows.
+256-block container of 32768-byte rows and on 8192 session rows. Each
+path (main, raw, scan, stream, stream_block, coders, cli, dist) launches
+the kernels that ``chip_smoke.PATH_KERNELS`` lists for it and no others,
+a match search its documented counts, and every kernel of the library is
+on some path.
 """
 
 import json
@@ -78,6 +82,10 @@ from test_torch_cases import (FOLD_CAP, WALK_SKIPS, breaks_rows,
                               hand_fill, heads_rows, minmax_rows, pack_units,
                               raw_fuzz, sync_batch, sync_kwargs, walk_steps)
 from test_torch_sessions import _batch, _plan, _text
+from test_torch_trace import _runs_data
+
+import chip_smoke
+from chip_smoke import PATH_KERNELS, RAW_KERNELS, check_launches
 
 pytestmark = pytest.mark.gpu
 
@@ -628,7 +636,8 @@ def test_parse_kernel_corrupt_records(cuda, span, nslots, extra, shift):
 
 def test_container_256_blocks_on_card_equals_cpu(cuda):
     """A 256-block container: the card's bytes are the CPU's, and the card
-    decodes it through the parse, fill and expand kernels, once each."""
+    decodes it through the parse, fill and expand kernels, once each; a
+    flipped payload byte raises ValueError."""
     data = _corpus_like(6, 256 * 2048 - 100)
     gpu = BlockCodec(block=2048, device=cuda)
     blob = gpu.compress(data)
@@ -638,6 +647,10 @@ def test_container_256_blocks_on_card_equals_cpu(cuda):
     counts = _kernels.launch_counts()
     assert (counts["parse"], counts["rowscan_cummax"], counts["expand"]) == (
         1, 1, 1)
+    mut = bytearray(blob)
+    mut[len(mut) // 2] ^= 0x10
+    with pytest.raises(ValueError):
+        gpu.decompress(bytes(mut))
 
 
 def _stage_kernels(events):
@@ -824,8 +837,7 @@ def test_raw_decode_on_card_equals_cpu(cuda):
     got = gpu.decode_batch_raw(comp.to(cuda), clen.to(cuda))
     counts = _kernels.launch_counts()
     _equal([t.cpu() for t in got], want)
-    for name in ("raw_heads", "rowscan_cumsum", "walk_tables",
-                 "walk_entries", "walk_descent", "rowscan_cummax", "expand"):
+    for name in RAW_KERNELS:
         assert counts[name] > 0, name
     assert counts["rowscan_rcummin"] == 0
     chain = b"".join(comp[i, :clen[i]].numpy().tobytes()
@@ -995,21 +1007,6 @@ def test_scan_parse_kernel(cuda, multi, max_units, shift):
     assert got[0].shape == (33, units)
     if max_units is None:
         assert int(got[2][24]) == (2 if multi else 1)
-
-
-def test_scan_measurements(cuda):
-    """The scan parse's measurement helpers: the walker's clock64 cycles
-    and steps per stream (at least the stream's steps with output, and a
-    cycle or more a step), and the latency of one dependent link."""
-    comp, n = _scan_streams(cuda, 0)
-    kw = {"out_cap": 8192, "max_units": decode.default_max_units(8192)}
-    stats = decode._scan_walker_stats(comp, n, **kw).cpu()
-    recs, _, marks = decode._parse_scan(comp, n, **kw)
-    steps = ((recs >= 0).sum(1) + marks).cpu()
-    assert stats.shape == (33, 2)
-    assert bool((stats[:, 1] >= steps).all())
-    assert bool((stats[:, 0] >= stats[:, 1]).all())
-    assert 1.0 <= decode._chain_latency(cuda) <= 64.0
 
 
 @pytest.mark.parametrize("shift", [0, 1])
@@ -1244,6 +1241,12 @@ def test_expand_kernel_status_rows(cuda, out_cap):
 
 
 def test_codec_on_card_equals_cpu(cuda):
+    """Both policies' containers on the card are the CPU's and round-trip;
+    the greedy raw payload is the C encoder's bytes block by block, and
+    the C decoder reads it back; a second compress at 32 KiB blocks gives
+    the first one's bytes."""
+    from lzs_tpu_torch.utils import native
+
     rng = np.random.default_rng(5)
     lits = [c for c in range(256) if c not in (65, 66)]
     deep = b"".join(bytes([lits[k % len(lits)], 65, 66])
@@ -1265,6 +1268,17 @@ def test_codec_on_card_equals_cpu(cuda):
         assert gpu.decompress(blob) == data
         assert gpu.compress(b"") == cpu.compress(b"")
         assert gpu.decompress(gpu.compress(b"x")) == b"x"
+    raw = BlockCodec(block=2048, device=cuda).compress(data, container=False)
+    assert raw == b"".join(native.compress(data[s:s + 2048])
+                           for s in range(0, len(data), 2048))
+    assert native.decompress(raw, out_cap=len(data),
+                             multi_stream=True) == data
+    # a second compress with the same codec gives the same bytes: nothing
+    # of one call (a reused buffer, a cached plan) leaks into the next
+    wide = BlockCodec(block=32768, device=cuda)
+    text = _corpus_like(7, 3 * 32768 - 500)
+    blob = wide.compress(text)
+    assert wide.compress(text) == blob and wide.decompress(blob) == text
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -1590,17 +1604,38 @@ def test_raw_file_past_2_25_on_card(cuda, tmp_path):
     assert "route: device\n" in err.getvalue()
 
 
+def long_token_file(nibbles: int) -> tuple[bytes, int]:
+    """A raw file of one long token, and the a's it decodes to (then one
+    b): a literal a, a copy of offset 1 with length code 1111,
+    ``nibbles`` extension nibbles of 15 and the end nibble 3, a literal b
+    and an end marker, bit by bit at its ends and 0xff bytes between. Its
+    token is 8 + 15 * nibbles + 3 bytes, each the one before it."""
+    head = "0" + format(ord("a"), "08b") + "11" + "0000001" + "1111"
+    fill = -len(head) % 8
+    whole, rest = divmod(4 * nibbles - fill, 8)
+    end = "1" * rest + "0011" + "0" + format(ord("b"), "08b") + "110000000"
+    end += "0" * (-len(end) % 8)
+
+    def pack(bits: str) -> bytes:
+        return int(bits, 2).to_bytes(len(bits) // 8, "big")
+
+    data = (pack(head + "1" * fill) + np.full(whole, 0xFF, np.uint8).tobytes()
+            + pack(end))
+    return data, 1 + 8 + 15 * nibbles + 3
+
+
 def test_long_token_on_card(cuda, tmp_path):
     """A raw file of one copy of offset 1 whose run of 15-nibbles spans
     some 2.5 input windows (5 * 2^23 nibbles: 20 MiB in, 629 MB out)
     decodes on the card through cli.main, each window cutting the run,
     and through decode_batch_bits at an out_cap inside the token: the
     copy rule's bytes, over windows that launch the heads kernel, the walk
-    (K11-K13), the chained scans (K8, K9) and the expansion (K17)."""
+    (K11-K13), the chained scans (K8, K9) and the expansion (K17). A run
+    of 2^27 + 2^24 nibbles (its run past 2^26 input bytes, 2,264,924,173
+    bytes out, past 2^31) decodes through the CLI's raw route too."""
     import contextlib
     import io
 
-    from chip_smoke import RAW_KERNELS, long_token_file
     from lzs_tpu_torch import cli
     from lzs_tpu_torch.ops import bitpar
 
@@ -1626,6 +1661,15 @@ def test_long_token_on_card(cuda, tmp_path):
                                  device=cuda), out_cap=cap)
     assert got.shape == (1, cap) and bool((got == ord("a")).all())
     assert out_len.tolist() == [cap] and markers.tolist() == [0]
+    del comp, got
+    data, n = long_token_file((1 << 27) + (1 << 24))
+    assert n + 1 > 1 << 31 and len(data) > 1 << 26
+    _kernels.reset_launches()
+    out = cli._decompress_raw_device(data, cuda)
+    counts = _kernels.launch_counts()
+    assert len(out) == n + 1 and out[-1:] == b"b" and out.count(b"a") == n
+    for name in RAW_KERNELS:
+        assert counts[name] >= 1, (name, counts[name])
 
 
 def test_distributed_codec_nccl_world_of_one(cuda, tmp_path):
@@ -1685,3 +1729,41 @@ def test_encode_start_zero_launches_the_same(cuda):
     assert counts[0] == counts[1] and counts[0]["walk_descent"] == 1
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1], out[1][1])
+
+
+# --- each path launches its kernels -------------------------------------
+
+#: chip_smoke's sizes cut so that each path runs in seconds and still
+#: reaches all of its kernels: 2048-byte blocks of ``_runs_data`` (runs
+#: past the probe's 48-byte span, so probe waves and a tier-2 round run),
+#: a step budget that cuts every 2048-byte stream, the big raw file one
+#: copy of the raw file
+SMALL = {"BLOCK": 2048, "CUT_UNITS": 60, "BIG_MIB": 0}
+
+
+@pytest.mark.parametrize("path", list(PATH_KERNELS))
+def test_path_launches_its_kernels(cuda, tmp_path, monkeypatch, path):
+    """Each path of the port on the card, driven by ``chip_smoke.DRIVES``
+    at ``SMALL`` sizes, launches every kernel of ``PATH_KERNELS[path]``
+    and no other, the counters reset after its inputs are made, and a
+    match search (main, stream) launches perk_level 11 times and
+    gram_keys, rank_lcp, ext_breaks and ext_fold once
+    (``chip_smoke.check_launches``); its outputs are checked as it runs
+    (the C encoder's bytes, round trips, status words)."""
+    for name, value in SMALL.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    run = chip_smoke.DRIVES[path](_runs_data(), cuda, tmp_path)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    run()
+    counts = _kernels.launch_counts()
+    check_launches(path, counts)
+    if path == "main":                     # two compresses, a search each
+        assert counts["gram_keys"] == 2 and counts["perk_level"] == 22
+
+
+def test_every_kernel_is_on_a_path():
+    """Every kernel of the library is on some path's list."""
+    assert set(chip_smoke.DRIVES) == set(PATH_KERNELS)
+    assert ({k for names in PATH_KERNELS.values() for k in names}
+            == {k.name for k in _kernels.KERNELS})

@@ -225,15 +225,17 @@ def test_scan_rejects_unsupported_device():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (walked, not listed) and ``chip_smoke.py``
-    import neither jax nor the JAX package."""
+    """Every module of the port (walked, not listed),
+    ``scripts/kernel_bench.py`` and the ``chip_smoke.py`` it imports import
+    neither jax nor the JAX package."""
     code = ("import importlib, pkgutil, sys\n"
             "import lzs_tpu_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
             "    lzs_tpu_torch.__path__, 'lzs_tpu_torch.')]\n"
             "for name in mods:\n"
             "    importlib.import_module(name)\n"
-            "import chip_smoke\n"
+            "import runpy\n"
+            "runpy.run_path('scripts/kernel_bench.py')\n"
             "lzs_tpu_torch.StreamCompressor, lzs_tpu_torch.GeneralCodec\n"
             "for m in ('coders', 'models.profiles', 'cli', 'parallel.dist'):\n"
             "    assert 'lzs_tpu_torch.' + m in mods, m\n"

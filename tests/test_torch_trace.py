@@ -1,9 +1,9 @@
-"""lzs_tpu_torch: stage spans, host spans, the profile script's device
+"""lzs_tpu_torch: stage spans, host spans, the benchmark's device
 accounting, and operand checks that must agree across devices.
 
-The stage spans are what ``chip_smoke.py`` and ``scripts/profile_port.py``
-read the pipeline through, so every stage of a real compress + decompress
-must show up; the profile script must count device time as the union of
+The stage spans are what the benchmark (``portbench/tracing.py``) reads
+the pipeline through, so every stage of a real compress + decompress
+must show up; the benchmark must count device time as the union of
 device activity intervals, attributed by launch time to the stage open on
 the host. The host spans frame the compress byte APIs around the stages
 (only ``wait`` inside one, ``extend``'s reads), and neither synchronise
@@ -11,8 +11,6 @@ nor reach ``stage_times()``.
 """
 
 import datetime
-import importlib.util
-import pathlib
 
 import numpy as np
 import pytest
@@ -23,16 +21,7 @@ import torch.distributed as dist
 from lzs_tpu_torch import BlockCodec, parallel, trace
 from lzs_tpu_torch.blocks import pad_blocks
 from lzs_tpu_torch.ops import decode, ppack
-
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-
-
-def _profile_port():
-    spec = importlib.util.spec_from_file_location(
-        "profile_port", ROOT / "scripts" / "profile_port.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from portbench import tracing
 
 
 def test_stage_times_cover_the_pipeline():
@@ -197,11 +186,17 @@ def test_host_span_refuses_an_unknown_name():
     ([(5, 6), (0, 1)], 2.0),              # unsorted
 ])
 def test_union_of_device_intervals(intervals, want):
-    assert _profile_port()._union_us(intervals) == want
+    assert tracing.union_us(intervals) == want
 
 
 def test_device_summary_attributes_by_launch():
+    """Device time goes to the stage open on the host at its launch (not
+    at its run), to none where no stage was open; busy time is the union
+    of the activities' intervals inside the call span, and neither host
+    ops nor device annotations are activity."""
     ev = [
+        {"cat": "user_annotation", "name": "portbench::call", "ts": 0,
+         "dur": 410},
         {"cat": "user_annotation", "name": "lzs::parse", "ts": 0, "dur": 100},
         {"cat": "user_annotation", "name": "lzs::fill", "ts": 100,
          "dur": 50},
@@ -223,11 +218,15 @@ def test_device_summary_attributes_by_launch():
         {"cat": "gpu_user_annotation", "name": "lzs::parse", "ts": 200,
          "dur": 15},
     ]
-    out = _profile_port().device_summary(ev)
-    assert out["activities"] == 4
-    assert out["busy_ms"] == pytest.approx(0.020)
-    assert out["stages"] == {"fill": 0.004, "other": 0.001, "parse": 0.015}
-    assert out["top"][0] == ["k_a", 0.02]
+    view = tracing.TraceView(ev)
+    assert len(view.device) == 4
+    assert view.busy_s() == pytest.approx(20e-6)
+    assert view.busy_s({"parse"}) == pytest.approx(15e-6)
+    assert view.busy_s({"fill"}) == pytest.approx(4e-6)
+    assert view.busy_s({None}) == pytest.approx(1e-6)
+    assert view.busy_s({"parse", "fill"}) == pytest.approx(19e-6)
+    assert view.busy_s(name_prefix="k_") == pytest.approx(15e-6)
+    assert view.top_device_ops(1) == [["k_a", pytest.approx(20e-6)]]
 
 
 @pytest.mark.parametrize("b", [0, 3])
