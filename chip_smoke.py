@@ -46,8 +46,9 @@ Phases (any failure raises and exits non-zero):
              dist          DistributedCodec on an NCCL world of one:
                            BlockCodec's payload, an exact decompress;
              each path must launch exactly the kernels of its list, and a
-             match search (main, stream) perk_level 11 times and
-             gram_keys, rank_lcp, ext_breaks and ext_fold once;
+             match search (main, stream) perk_level 11 times,
+             gram_keys, rank_lcp, ext_breaks and ext_fold once, and
+             probe_span once a probe wave, as rank_mask;
   3. replay  every recorded call held to the kernel's plain version on the
              same inputs, bitwise; the first and the last call of each set
              of tensor shapes timed with CUDA events beside its bound
@@ -102,13 +103,15 @@ RAW_KERNELS = ("raw_heads", "rowscan_cummax", "rowscan_cumsum",
 #: the kernels each path launches, and no others
 PATH_KERNELS = {
     "main": ("gram_keys", "rank_lcp", "perk_level", "ext_breaks",
-             "ext_fold", "rank_mask", "gather_big", "rowscan_cummax",
+             "ext_fold", "rank_mask", "probe_span", "gather_big",
+             "rowscan_cummax",
              "rowscan_rcummin", "pack", "sync", "expand", "walk_tables",
              "walk_entries", "walk_descent", "parse"),
     "raw": RAW_KERNELS,
     "scan": ("scan_parse", "expand"),
     "stream": ("gram_keys", "rank_lcp", "perk_level", "ext_breaks",
-               "ext_fold", "rank_mask", "gather_big", "rowscan_rcummin"),
+               "ext_fold", "rank_mask", "probe_span", "gather_big",
+               "rowscan_rcummin"),
 }
 #: the one-block entry points and DistributedCodec run the main path's
 #: encode and decode at batch 1 and on a mesh; the codec profiles run the
@@ -123,8 +126,9 @@ PATH_KERNELS["dist"] = PATH_KERNELS["main"]
 FIRST_OF_SHAPE = ("stream", "stream_block", "coders", "cli", "dist")
 
 #: a match search's launches of each kernel, at the search cap's 11
-#: levels (k = 2 .. 12); the probe tier's rank_mask and gather_big follow
-#: its waves
+#: levels (k = 2 .. 12); the probe tier's kernels follow its waves:
+#: probe_span and rank_mask once a wave, gather_big once a wave (the
+#: delivery) and once a tier-2 round
 SEARCH_LAUNCHES = {"gram_keys": 1, "rank_lcp": 1, "perk_level": 11,
                    "ext_breaks": 1, "ext_fold": 1}
 #: the stream path's depth cut, feed and the coders' block
@@ -148,6 +152,7 @@ WRAPPERS = {
     "ext_breaks": (pext, "ext_breaks", pext.ext_breaks_plain),
     "ext_fold": (pext, "ext_fold", pext.ext_fold_plain),
     "rank_mask": (pext, "rank_mask", pext.rank_mask_plain),
+    "probe_span": (sortmatch, "probe_span", sortmatch.probe_span_plain),
     "gather_big": (pgather, "gather_big", pgather.gather_big_plain),
     "rowscan_cummax": (pext, "cummax_rows", pext.cummax_rows_plain),
     "rowscan_rcummin": (pext, "rcummin_rows", pext.rcummin_rows_plain),
@@ -166,12 +171,13 @@ WRAPPERS = {
 }
 
 #: The fewest int32 operations a function needs per element (expand: per
-#: output byte; gather_big: per query; parse: per lane-substep;
+#: output byte; gather_big: per query; probe_span: per live lane; parse:
+#: per lane-substep;
 #: scan_parse: per parse step, counted as the records with output plus
 #: the end markers; raw_heads: per bit position; else per element of the
 #: first operand), counted from its definition and not from a kernel's
 #: code. ``portbench.roofline.OPS_PER_ELEMENT`` holds them all but the
-#: three of ``OWN_OPS``; the reasons for each: a row scan 1 (its
+#: four of ``OWN_OPS``; the reasons for each: a row scan 1 (its
 #: operator); rank_mask 2 (add, the exclusive difference); gather_big 2
 #: (the clamp); perk_level 37: the keys 5 (compare, select, max, shift,
 #: or), the row sort 14 (a comparison sort of N keys needs log2(N!)
@@ -198,8 +204,13 @@ WRAPPERS = {
 #: head's fields 12, as scan_parse's; its width and the chain's entry 4,
 #: the chain's value at the head's end 1, the fit 2, the length 3, the
 #: successor 6, the step 2, the low bits 3). Roofline's raw heads stage
-#: counts 14 a bit for the same function (ROADMAP D1).
-OWN_OPS = {"gram_keys": 24, "rank_lcp": 9, "raw_heads": 38}
+#: counts 14 a bit for the same function (ROADMAP D1). probe_span 30 per
+#: live lane (the key's position, offset and its floor 3; cbase, a and
+#: bpos 4; the XORs of the two spans' 12 words 12; the first word that
+#: differs and its leading equal bytes 3; the count 2; the clip to n 3;
+#: the tier-2 test 3); an empty lane needs its key's test alone.
+OWN_OPS = {"gram_keys": 24, "rank_lcp": 9, "raw_heads": 38,
+           "probe_span": 30}
 OPS_PER_ELEMENT = {**roofline.OPS_PER_ELEMENT, **OWN_OPS}
 
 
@@ -276,6 +287,21 @@ def _bytes_moved(name: str, args: tuple, kw: dict, outs: tuple) -> int:
             near[:, :-1] |= tie
             touched = int(near.sum()) * key1.element_size()
         return 24 * s0.numel() + touched
+    if name == "probe_span":
+        # a key read and cln and dact written per lane, n per row, and each
+        # x entry that a live lane's two 48-byte spans touch read once
+        x, n, srt, cap = args
+        npos = x.shape[1]
+        live = srt != sortmatch._NO_LANE
+        row = live.nonzero()[:, 0]
+        key = srt[live]
+        a = ((key >> 15) + cap).clamp(max=npos - 1)
+        bpos = a - torch.minimum((key & 0x7FFF).clamp(min=1), a)
+        t = torch.arange(4 * sortmatch._T1_WORDS, device=srt.device)
+        pos = torch.cat([a[:, None] + t, bpos[:, None] + t], 1)
+        flat = (row[:, None] * npos + pos)[pos < npos]
+        return 12 * srt.numel() + 4 * n.numel() + 4 * torch.unique(
+            flat).numel()
     if name == "gather_big":
         # an index read and an output written per query, and each table
         # entry that the queries touch read once
@@ -301,6 +327,8 @@ def _elements(name: str, args: tuple, outs: tuple) -> int:
                    .sum() + markers.sum())
     if name == "gather_big":
         return args[1].numel()
+    if name == "probe_span":
+        return int((args[2] != sortmatch._NO_LANE).sum())
     if name == "raw_heads":
         return args[0].shape[0] * args[2]
     if name == "parse":
@@ -543,7 +571,8 @@ DRIVES = {"main": _main, "raw": _raw, "scan": _scan, "stream": _stream,
 
 def check_launches(path: str, counts: dict[str, int]) -> None:
     """The path launched exactly its kernels; a match search its levels
-    and its one call of the others."""
+    and its one call of the others, and its probe tier a span compare and
+    a rank a wave, with at least the wave's delivery gather."""
     launched = sorted(k for k, v in counts.items() if v)
     _check(launched == sorted(PATH_KERNELS[path]),
            f"{path}: launched {launched}, listed "
@@ -552,7 +581,8 @@ def check_launches(path: str, counts: dict[str, int]) -> None:
         searches = counts["gram_keys"]
         _check(all(counts[k] == v * searches
                    for k, v in SEARCH_LAUNCHES.items())
-               and counts["gather_big"] >= 2 * counts["rank_mask"],
+               and counts["probe_span"] == counts["rank_mask"]
+               and counts["gather_big"] >= counts["rank_mask"],
                f"{path}: {searches} searches launched {counts}")
 
 

@@ -64,6 +64,7 @@ _SIGNATURES = {
                       _P, _I],
     "lzs_gram_keys": [_P, _P, _P, _I, _I, _I],
     "lzs_rank_lcp": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
+    "lzs_probe_span": [_P, _P, _P, _P, _P, _I, _I, _I, _I],
 }
 
 
@@ -258,9 +259,14 @@ GRAM_KEYS = Kernel("gram_keys", "lzs_gram_keys", "lzs_tpu_torch/csrc/gram.cu",
                    "lzs_tpu/ops/sortmatch.py:74")
 RANK_LCP = Kernel("rank_lcp", "lzs_rank_lcp", "lzs_tpu_torch/csrc/gram.cu",
                   "lzs_tpu/ops/sortmatch.py:197")
+# replaces JAX's tier-1 span fetch (a K10 gather) and its jnp compare
+PROBE_SPAN = Kernel("probe_span", "lzs_probe_span",
+                    "lzs_tpu_torch/csrc/probe.cu",
+                    "lzs_tpu/ops/sortmatch.py:445")
 KERNELS = (GRAM_KEYS, RANK_LCP, PERK_LEVEL, EXT_BREAKS, EXT_FOLD, RANK_MASK,
-           GATHER_BIG, CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES, WALK_ENTRIES,
-           WALK_DESCENT, PACK, SYNC, EXPAND, PARSE, SCAN_PARSE, RAW_HEADS)
+           PROBE_SPAN, GATHER_BIG, CUMMAX, RCUMMIN, CUMSUM, WALK_TABLES,
+           WALK_ENTRIES, WALK_DESCENT, PACK, SYNC, EXPAND, PARSE, SCAN_PARSE,
+           RAW_HEADS)
 
 
 def reset_launches() -> None:

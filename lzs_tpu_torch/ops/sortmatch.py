@@ -5,9 +5,10 @@ accelerator: ``candidates_batch`` sorts the grams and runs the per-k glue
 of ``pcand`` (K1, a row sort and K2+K3, one kernel per level) and
 ``_extend_batch`` the extension scans of ``pext`` (K4, the probe tier,
 K5); the probe tier compacts its lanes into waves and runs on
-``pgather.gather_big`` (K10), ``pext.rcummin_rows`` (K7) and
-``pext.rank_mask`` (K6). Each kernel stage launches a CUDA kernel on a
-CUDA tensor. Per position i of each block:
+``probe_span`` (``csrc/probe.cu``, tier 1), ``pgather.gather_big``
+(K10), ``pext.rcummin_rows`` (K7) and ``pext.rank_mask`` (K6). Each
+kernel stage launches a CUDA kernel on a CUDA tensor. Per position i of
+each block:
 
   score[i] = max k in [2, cap] such that the k-gram at i occurs at some
              j in [i - window, i - 1]             (capped greedy score)
@@ -26,8 +27,10 @@ derivation of every step. What differs here:
   * The per-k position-restoring sort becomes a store by position inside
     ``pcand.perk_level``: the seg-sorted keys carry a permutation of the
     positions.
-  * The probe's gram words and byte-aligned spans are uint32 values held
-    in int64 (the gathered words themselves are int32 bit patterns).
+  * The probe's tier 1 (JAX: a K10 gather of both spans' words, then
+    jnp) is one kernel, ``probe_span``, that compares each live lane's
+    spans straight from the bytes; its plain form keeps JAX's words, as
+    uint32 values held in int64.
   * The probe's lanes carry the whole offset, so windows past 2047 (the
     generalized coders' profiles) extend their runs exactly, as JAX's
     one-block ``_extend`` does; JAX's batch form clips lane offsets at
@@ -201,6 +204,74 @@ def _aligned(w: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return ((w[:, :, :-1] << sh) | (w[:, :, 1:] >> (32 - sh))) & 0xFFFFFFFF
 
 
+def probe_span_plain(x: torch.Tensor, n: torch.Tensor, srt: torch.Tensor,
+                     cap: int):
+    """Plain form of ``probe_span``: both sides' spans fetched from a
+    big-endian word array of the rows (uint32 bits in int32) and compared
+    a word at a time."""
+    b, npos = x.shape
+    p = srt.shape[1]
+    nwords = (npos // 4 + _T1_WORDS + 2 + 127) & ~127
+    xe = torch.cat([x, x.new_zeros((b, nwords * 4 - npos))], 1).reshape(
+        b, nwords, 4).to(torch.int64)
+    w64 = (xe[..., 0] << 24) | (xe[..., 1] << 16) | (xe[..., 2] << 8) \
+        | xe[..., 3]
+    words = (w64 - ((w64 >> 31) << 32)).to(torch.int32)  # uint32 bits
+    nt = _T1_WORDS + 1
+    tt = torch.arange(nt, dtype=torch.int32, device=x.device)
+    lanes = srt < _NO_LANE
+    cdoff = (srt & 0x7FFF).clamp(min=1)
+    cbase = torch.where(lanes, srt >> 15, 0) + cap
+    a = cbase.clamp(0, npos - 1)
+    bpos = a - torch.minimum(cdoff, a)
+    # one fetch of both sides' spans (2 * nt words per lane)
+    idx = torch.cat([(a[:, :, None] >> 2) + tt,
+                     (bpos[:, :, None] >> 2) + tt], 2).reshape(b, -1)
+    got = pgather.gather_big_plain(words, idx).reshape(b, p, 2 * nt)
+    lew = clz32(_aligned(got[:, :, :nt], a)
+                ^ _aligned(got[:, :, nt:], bpos)) >> 3
+    # equal bytes: 4 per leading equal word, then the leading equal bytes
+    # of the first word that differs (JAX sums lew under a cummin mask; an
+    # argmax finds the same word without a scan)
+    part = lew != 4
+    f = torch.where(part.any(2), part.to(torch.uint8).argmax(2), _T1_WORDS)
+    last = lew.gather(2, f.clamp(max=_T1_WORDS - 1)[:, :, None])[:, :, 0]
+    ext = (4 * f + torch.where(f < _T1_WORDS, last, 0)).to(torch.int32)
+    full_span = ext >= 4 * _T1_WORDS
+    ext = torch.minimum(ext, (n[:, None] - cbase).clamp(min=0))
+    act = lanes & full_span & (cbase + ext < n[:, None])
+    return torch.where(lanes, ext, 0), torch.where(act, cdoff, _BIG)
+
+
+def probe_span(x: torch.Tensor, n: torch.Tensor, srt: torch.Tensor,
+               cap: int):
+    """Tier 1 of the probe over one wave's lanes: x int32 (B, N) byte
+    values, n int32 (B), srt int32 (B, P) the wave's sorted lane keys
+    i << 15 | doff (``_NO_LANE`` on an empty lane) -> (cln, dact) int32
+    (B, P). For a live lane, with cbase = i + cap, a = min(cbase, N - 1)
+    and d = max(doff, 1): cln is the leading equal bytes of x[a ..] and
+    x[a - min(d, a) ..] over the 48-byte span (bytes past N read 0),
+    clipped to max(n - cbase, 0); dact is d where the run fills the span
+    and goes on inside the block (tier 2 closes it), ``_BIG`` elsewhere.
+    An empty lane gives 0 and ``_BIG``. One launch of ``csrc/probe.cu``
+    on a CUDA tensor."""
+    if _kernels.on_cpu(x, n, srt):
+        return probe_span_plain(x, n, srt, cap)
+    _kernels.check(x, "x", torch.int32)
+    b, npos = x.shape
+    _kernels.check(n, "n", torch.int32, (b,))
+    _kernels.check(srt, "srt", torch.int32)
+    if srt.dim() != 2 or srt.shape[0] != b:
+        raise ValueError(f"srt: expected ({b}, P), got {tuple(srt.shape)}")
+    cln = torch.empty_like(srt)
+    dact = torch.empty_like(srt)
+    if srt.numel():
+        _kernels.PROBE_SPAN.launch(
+            x.device, x.data_ptr(), n.data_ptr(), srt.data_ptr(),
+            cln.data_ptr(), dact.data_ptr(), b, srt.shape[1], npos, cap)
+    return cln, dact
+
+
 def _read(t: torch.Tensor) -> int:
     """``int(t)`` of a one-element tensor, under the host span ``wait``:
     the host blocks on the card's queue."""
@@ -215,25 +286,19 @@ def _probe_batch(x: torch.Tensor, n: torch.Tensor, doff: torch.Tensor,
     For active (b, i): the length of the maximal run of
     x[b, a + t] == x[b, a + t - d] (t >= 0, a + t < n[b]) with a = i + cap
     and d = max(doff[b, i], 1). In waves of up to _PROBE_CAP lanes per
-    row, compacted by one row sort: tier 1 compares 48-byte spans fetched
-    with ``pgather.gather_big``; runs past the span close in tier 2, one
-    batch-wide offset per round, with a diagonal-run column (K7
-    ``rcummin_rows``); results return to their positions by probe rank
-    (K6 ``rank_mask``). Returns int32[B, N], 0 at inactive positions.
+    row, compacted by one row sort: tier 1 compares 48-byte spans
+    (``probe_span``); runs past the span close in tier 2, one batch-wide
+    offset per round, with a diagonal-run column (K7 ``rcummin_rows``,
+    K10 ``pgather.gather_big``); results return to their positions by
+    probe rank (K6 ``rank_mask``, K10). Returns int32[B, N], 0 at inactive
+    positions.
     """
     b, npos = x.shape
     dev = x.device
+    x = x.contiguous()
     p = min(_PROBE_CAP, npos)
-    nwords = (npos // 4 + _T1_WORDS + 2 + 127) & ~127
-    xe = torch.cat([x, x.new_zeros((b, nwords * 4 - npos))], 1).reshape(
-        b, nwords, 4).to(torch.int64)
-    w64 = (xe[..., 0] << 24) | (xe[..., 1] << 16) | (xe[..., 2] << 8) \
-        | xe[..., 3]
-    words = (w64 - ((w64 >> 31) << 32)).to(torch.int32)  # uint32 bits
     i = torch.arange(npos, dtype=torch.int32, device=dev).expand(b, npos)
     nq = n[:, None]
-    nt = _T1_WORDS + 1
-    tt = torch.arange(nt, dtype=torch.int32, device=dev)
 
     remaining = active
     length = torch.zeros((b, npos), dtype=torch.int32, device=dev)
@@ -243,44 +308,25 @@ def _probe_batch(x: torch.Tensor, n: torch.Tensor, doff: torch.Tensor,
         # past 2047 compare at 2047; its one-block form, which its CPU
         # path runs, and this one take the offset itself
         packed = torch.where(remaining, (i << 15) | doff, _NO_LANE)
-        srt = torch.sort(packed, dim=1).values[:, :p]
-        lanes = srt < _NO_LANE
-        cdoff = (srt & 0x7FFF).clamp(min=1)
-        cbase = torch.where(lanes, srt >> 15, 0) + cap
-        a = cbase.clamp(0, npos - 1)
-        bpos = a - torch.minimum(cdoff, a)
+        srt = torch.sort(packed, dim=1).values[:, :p].contiguous()
+        cln, dact = probe_span(x, n, srt, cap)
 
-        # tier 1: one fetch of both sides' spans (2 * nt words per lane)
-        idx = torch.cat([(a[:, :, None] >> 2) + tt,
-                         (bpos[:, :, None] >> 2) + tt], 2).reshape(b, -1)
-        got = pgather.gather_big(words, idx).reshape(b, p, 2 * nt)
-        lew = clz32(_aligned(got[:, :, :nt], a)
-                    ^ _aligned(got[:, :, nt:], bpos)) >> 3
-        # equal bytes: 4 per leading equal word, then the leading equal
-        # bytes of the first word that differs (JAX sums lew under a
-        # cummin mask; an argmax finds the same word without a scan)
-        part = lew != 4
-        f = torch.where(part.any(2), part.to(torch.uint8).argmax(2),
-                        _T1_WORDS)
-        last = lew.gather(2, f.clamp(max=_T1_WORDS - 1)[:, :, None])[:, :, 0]
-        ext = (4 * f + torch.where(f < _T1_WORDS, last, 0)).to(torch.int32)
-        full_span = ext >= 4 * _T1_WORDS
-        ext = torch.minimum(ext, (nq - cbase).clamp(min=0))
-        cln = torch.where(lanes, ext, 0)
-        act = lanes & full_span & (cbase + ext < nq)
-
-        # tier 2: close long runs, one batch-wide offset per round
+        # tier 2: close long runs, one batch-wide offset per round. Every
+        # lane gathers the run column at its unclamped i + cap (an empty
+        # lane's index lies past N, which gather_big clamps), but only
+        # the round's lanes (dact == d0) take the value: each ran its
+        # whole span inside n, so i + cap + 48 < n and i + cap is its a
         while True:
-            d0 = _read(torch.where(act, cdoff, _BIG).min())
+            d0 = _read(dact.min())
             if d0 == _BIG:
                 break
             eq = (x == torch.roll(x, d0, 1)) & (i >= d0) & (i < nq)
             rm = pext.rcummin_rows(torch.where(eq, _BIG, i))
             col = (torch.minimum(rm, nq) - i).clamp(min=0)
-            vals = pgather.gather_big(col, a)
-            mine = act & (cdoff == d0)
+            vals = pgather.gather_big(col, (srt >> 15) + cap)
+            mine = dact == d0
             cln = torch.where(mine, vals, cln)
-            act = act & ~mine
+            dact = torch.where(mine, _BIG, dact)
 
         # deliver by probe rank: the wave took each row's first p active
         # positions in index order, so the r-th of them reads lane r

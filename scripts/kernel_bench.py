@@ -45,6 +45,17 @@ the same function (``LIBRARY``), that call ("library"); event and
 device time of a context call (``CONTEXT``: ext_fold's torch.cummax of
 its prologue) where there is one ("context").
 
+The calls of the kernels in ``CELL_KERNELS`` (probe_span) come instead
+from one call of each of the compress cells in ``CELLS`` on its own
+inputs at seed 1 (after the cell's set-up and one warm-up call): a
+probe wave takes its lanes from the rows it searches, which the corpus
+paths do not have. Each such cell first prints a line with that call's
+launches of every kernel (a probe wave is one launch of probe_span) and,
+for each probe_span call (a wave), the lanes launched, the live lanes,
+the lanes whose run fills the 48-byte span and goes on (tier 2 closes
+them) and the tier-2 rounds that follow (one a distinct offset of those
+lanes).
+
 Run from the root of a checkout, on a machine with one CUDA device (to
 compare two commits, run each tree's own copy):
 
@@ -64,6 +75,7 @@ from __future__ import annotations
 import argparse
 import functools
 import hashlib
+import importlib
 import json
 import pathlib
 import subprocess
@@ -77,9 +89,10 @@ sys.path.insert(0, str(ROOT))
 
 from bench import CORPUS_SHA, make_corpus  # noqa: E402
 from chip_smoke import (  # noqa: E402
-    BLOCK, SIZE, WRAPPERS, _as_tuple, _shape_key, bound, event_ms, run_paths)
+    BLOCK, SIZE, WRAPPERS, _as_tuple, _shape_key, bound, event_ms,
+    recorded_calls, run_paths)
 from lzs_tpu_torch.blocks import BlockCodec  # noqa: E402
-from lzs_tpu_torch.ops import _kernels, pext  # noqa: E402
+from lzs_tpu_torch.ops import _kernels, pext, sortmatch  # noqa: E402
 
 #: the PyTorch call that computes a kernel's function, where there is one
 #: (timed beside the kernel as a yardstick; the port never calls it): each
@@ -96,6 +109,13 @@ LIBRARY = {
     "gather_big": lambda tab, idx: functools.partial(
         torch.gather, tab, 1, idx.clamp(0, tab.shape[1] - 1).long()),
 }
+
+#: the kernels whose calls come from one call of each of ``CELLS`` on
+#: its own inputs at seed ``CELL_SEED``, in place of the corpus paths
+CELL_KERNELS = ("probe_span",)
+CELLS = ("ipcomp-1500.compress", "ppp-stac-1500.session-compress",
+         "container-32k.compress")
+CELL_SEED = 1
 
 #: a PyTorch call timed beside a kernel for context (not its library
 #: call): ext_fold's scan alone, torch.cummax of the values its prologue
@@ -181,6 +201,59 @@ def record(kernels: list[str], data: bytes, device: torch.device) -> dict:
     return picked
 
 
+def probe_waves(calls: list) -> list[dict]:
+    """Each recorded probe_span call's lanes: launched, live, past the
+    span, and the tier-2 rounds after it."""
+    out = []
+    for args, kw in calls:
+        srt = args[2]
+        _, dact = sortmatch.probe_span(*args, **kw)
+        past = dact[dact != sortmatch._BIG]
+        out.append({"lanes": srt.numel(),
+                    "live": int((srt != sortmatch._NO_LANE).sum()),
+                    "past_span": past.numel(),
+                    "rounds": torch.unique(past).numel()})
+    return out
+
+
+def record_cells(kernels: list[str], device: torch.device) -> dict:
+    """The recorded calls of ``kernels`` in one call of each of ``CELLS``
+    on its own inputs at ``CELL_SEED``, the first call of each set of
+    shapes; prints each cell's launches and probe waves."""
+    from portbench.drivers import synchronize
+    from portbench.run import Cell
+
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    picked = {}
+    for name in CELLS:
+        cell = Cell(bench, name)
+        driver = importlib.import_module(
+            f"portbench.drivers.{cell.traffic['driver']}")
+        work = driver.setup(cell.config["codec"], cell.traffic, CELL_SEED,
+                            str(device))
+        try:
+            work.call()                                 # warm up
+            synchronize(device)
+            _kernels.reset_launches()
+            with recorded_calls() as calls:
+                work.call()
+            synchronize(device)
+            launches = {k: v for k, v in _kernels.launch_counts().items()
+                        if v}
+            print(json.dumps({"cell": name, "seed": CELL_SEED,
+                              "launches": launches,
+                              "probe_waves": probe_waves(
+                                  calls["probe_span"])}), flush=True)
+        finally:
+            work.close()
+        for kname in kernels:
+            for args, kw in calls[kname]:
+                picked.setdefault((kname, name, _shape_key(args, kw)),
+                                  (args, kw))
+        del calls
+    return picked
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", nargs="+",
@@ -197,17 +270,23 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
     device = torch.device("cuda", 0)
-    data = make_corpus(SIZE)
-    if hashlib.sha256(data).hexdigest() != CORPUS_SHA:
-        raise SystemExit("corpus drift")
+    on_cells = [k for k in args.kernels if k in CELL_KERNELS]
+    on_paths = [k for k in args.kernels if k not in CELL_KERNELS]
+    picked = {}
+    if on_paths:
+        data = make_corpus(SIZE)
+        if hashlib.sha256(data).hexdigest() != CORPUS_SHA:
+            raise SystemExit("corpus drift")
+        picked.update(record(on_paths, data, device))
+    if on_cells:
+        picked.update(record_cells(on_cells, device))
     flush_buf = torch.empty(args.flush_mib << 20, dtype=torch.uint8,
                             device=device)
 
     def flush():
         flush_buf.fill_(1)
 
-    for (name, path, shape), (a, kw) in record(args.kernels, data,
-                                               device).items():
+    for (name, path, shape), (a, kw) in picked.items():
         module, attr, plain = WRAPPERS[name]
         wrapper = getattr(module, attr)
 

@@ -486,6 +486,98 @@ def raw_fuzz(seed):
     return buf, np.array([len(st) for st in streams], np.int32)
 
 
+#: the probe's lane keys: an empty lane, and its span, cap and tier-2 mark
+PROBE_NO_LANE = 0x7FFFFFFF
+PROBE_SPAN = 48
+PROBE_CAP = 12
+PROBE_BIG = 0x3FFFFFFF
+#: offsets at and past the 2047-byte window: the coders' windows and a
+#: block's whole reach (keys carry 15 bits of offset)
+PROBE_FAR = (2047, 2048, 4095, 32767)
+#: each row's kind, by row % 6
+PROBE_KINDS = ("random", "live", "exact", "reach", "far", "empty")
+
+
+def probe_lanes(seed, b, npos, p, cap=PROBE_CAP):
+    """One probe wave's inputs: (x int32[B, N] byte values zero past n,
+    n int32[B], srt int32[B, P] sorted lane keys i << 15 | doff, empty
+    lanes PROBE_NO_LANE at each row's end), rows by PROBE_KINDS[row % 6]:
+    random lanes (0 to P of them) over small-alphabet or periodic bytes
+    (1% noise), n at N or up to 59 below it, offsets 0 to i + 1, the
+    row's period, 1, 2 and PROBE_FAR; all P lanes live; runs of exactly
+    47, 48 and 49 bytes past each lane's a = i + cap (offset 100); a run
+    of one byte that reaches n inside the span, with lanes on to the
+    row's end (a clamped at N - 1); every PROBE_FAR offset (4 lanes or
+    more) over a period of 2048; no lane at all."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 4, (b, npos)).astype(np.int32)
+    n = np.full(b, npos, np.int32)
+    srt = np.full((b, p), PROBE_NO_LANE, np.int64)
+    for r in range(b):
+        kind = PROBE_KINDS[r % 6]
+        row = x[r]
+        if kind == "empty":
+            continue
+        if kind == "reach":
+            n[r] = max(npos - 10, 1)
+            row[:n[r]] = 7
+            i = np.arange(max(n[r] - cap - 52, 0), npos)[-p:]
+            d = np.ones_like(i)
+        elif kind == "exact":
+            row[:] = rng.integers(0, 256, npos)
+            i = np.arange(150, npos - cap - 60, 300)[:p]
+            d = np.full_like(i, 100)
+            for j, at in enumerate(i + cap):
+                run = 47 + j % 3
+                for t in range(run):
+                    row[at + t] = row[at + t - 100]
+                row[at + run] = (row[at + run - 100] + 1) % 256
+        else:
+            q = 2048 if kind == "far" else int(
+                rng.integers(1, min(npos, 5000) + 1))
+            if kind == "far" or rng.random() < 0.5:
+                row[:] = np.resize(rng.integers(0, 256, q), npos)
+                flip = rng.random(npos) < 0.01
+                row[flip] = rng.integers(0, 256, int(flip.sum()))
+            k = p if kind == "live" else int(rng.integers(0, p + 1))
+            if kind == "far":
+                k = max(k, min(4, p))
+            i = np.sort(rng.choice(npos, k, replace=False))
+            if kind == "far":
+                d = np.array(PROBE_FAR)[rng.permutation(k) % 4]
+            else:
+                d = np.where(rng.random(k) < 0.5,
+                             rng.choice([q, 1, 2, *PROBE_FAR], k),
+                             rng.integers(0, np.minimum(i, 32766) + 2))
+                if rng.random() < 0.3:
+                    n[r] = npos - int(rng.integers(0, min(npos, 60)))
+        row[n[r]:] = 0
+        keys = np.sort((i.astype(np.int64) << 15) | np.minimum(d, 32767))
+        srt[r, :len(keys)] = keys
+    return x, n, srt.astype(np.int32)
+
+
+def probe_span_direct(x, n, srt, cap=PROBE_CAP):
+    """Tier 1 of the probe, lane by lane and byte by byte: (cln, dact)."""
+    npos = x.shape[1]
+    cln = np.zeros(srt.shape, np.int32)
+    dact = np.full(srt.shape, PROBE_BIG, np.int32)
+    for r, j in zip(*np.nonzero(srt != PROBE_NO_LANE)):
+        key = int(srt[r, j])
+        cbase, d = (key >> 15) + cap, max(key & 0x7FFF, 1)
+        a = min(cbase, npos - 1)
+        bpos = a - min(d, a)
+
+        def byte(k, r=r):
+            return int(x[r, k]) if k < npos else 0
+        ext = 0
+        while ext < PROBE_SPAN and byte(a + ext) == byte(bpos + ext):
+            ext += 1
+        cln[r, j] = min(ext, max(int(n[r]) - cbase, 0))
+        if ext == PROBE_SPAN and cbase + cln[r, j] < n[r]:
+            dact[r, j] = d
+    return cln, dact
+
 def test_cumsum_rows_wrap():
     v = cumsum_rows(0, 4, 1000).astype(np.int64)
     assert v.max() > (1 << 31) - 2000 and v.min() < -(1 << 31) + 2000
@@ -648,3 +740,28 @@ def test_raw_fuzz_properties():
     buf, lens = raw_fuzz(7)
     assert buf.shape[0] == 32 and (lens > 0).all()
     assert all(not buf[i, n:].any() for i, n in enumerate(lens))
+
+
+@pytest.mark.parametrize("b,npos,p", [(12, 2100, 256), (6, 32768, 64)])
+def test_probe_lanes_properties(b, npos, p):
+    x, n, srt = probe_lanes(npos, b, npos, p)
+    live = srt != PROBE_NO_LANE
+    assert not live[5].any() and live[1].all()
+    assert all((np.diff(r[r != PROBE_NO_LANE]) > 0).all()
+               and not live[i, live[i].sum():].any()
+               for i, r in enumerate(srt))
+    assert all(not x[i, k:].any() for i, k in enumerate(n))
+    cln, dact = probe_span_direct(x, n, srt)
+    # runs of 47, 48 and 49 bytes: the last two fill the span
+    exact = live[2]
+    assert (cln[2][exact][:3] == [47, 48, 48]).all()
+    assert ((dact[2][exact] != PROBE_BIG) == (np.arange(exact.sum()) % 3
+                                              != 0)).all()
+    # a run that reaches n inside the span, and lanes whose a is clamped
+    cbase = (srt[3][live[3]] >> 15) + PROBE_CAP
+    left = n[3] - cbase
+    assert ((cln[3][live[3]] == left) & (left > 0) & (left < 48)).any()
+    assert (cbase >= npos).any()
+    assert (cln[3][live[3]][cbase >= n[3]] == 0).all()
+    assert set(PROBE_FAR) <= set((srt[4][live[4]] & 0x7FFF).tolist())
+    assert (dact != PROBE_BIG).sum() > 5 and (cln[live] < 48).any()

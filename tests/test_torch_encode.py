@@ -23,6 +23,7 @@ from lzs_tpu.ops import sortmatch as jsm
 from lzs_tpu.ops import tokenize as jtok
 from lzs_tpu_torch.ops import encode, sortmatch, tokenize
 
+from test_torch_cases import probe_lanes, probe_span_direct
 from test_torch_pcand import mixed_blocks
 
 NPOS = 2048
@@ -139,6 +140,21 @@ def test_probe_far_offsets_match_direct_runs():
     want = _direct_runs(x, n, doff, active, 12)
     np.testing.assert_array_equal(got.numpy(), want)
     assert want[0][doff[0] == 3000].max() > 4 * 12    # tier 2 ran
+
+
+@pytest.mark.parametrize("b,npos,p,cap", [
+    (12, 2100, 256, 12), (6, 300, 300, 12), (6, 32768, 64, 12),
+    (7, 1500, 128, 16), (6, 1500, 64, 2), (1, 3547, 1024, 12)])
+def test_probe_span_plain_matches_direct_loop(b, npos, p, cap):
+    """Tier 1 of the probe (``probe_span``'s plain form, which the CPU
+    path runs) against a byte-by-byte loop on the seeded wave lanes: empty
+    and all-live rows, runs of 47 to 49 bytes, a run that reaches n inside
+    the span, a clamped at N - 1, offsets 2047, 2048, 4095 and 32767."""
+    x, n, srt = probe_lanes(npos + cap, b, npos, p, cap)
+    got = sortmatch.probe_span_plain(_t(x), _t(n), _t(srt), cap)
+    for g, w in zip(got, probe_span_direct(x, n, srt, cap), strict=True):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
 
 
 @pytest.mark.parametrize("b", [3, 8])

@@ -55,7 +55,11 @@ gram kernels (``gram_keys``, ``rank_lcp``) equal their plain forms at
 caps 2 to 16 (no key1, an int32 one, an int64 one) on rows of one byte,
 rows that a tile crosses, 1 x 32768, 256 x 32768, 8192 x 1500 and 8192 x
 3547, and ``candidates_batch`` on the card equals the CPU's on a
-256-block container of 32768-byte rows and on 8192 session rows. Each
+256-block container of 32768-byte rows and on 8192 session rows. The
+probe's span compare (``probe_span``) equals its plain form on the
+seeded wave lanes of tests/test_torch_cases.py at the cells' wave
+shapes (8192 x 1500, 8192 x 3547, 1024 x 32768, 1024 lanes), at batch 1
+and with every lane empty or live, one launch a wave. Each
 path (main, raw, scan, stream, stream_block, coders, cli, dist) launches
 the kernels that ``chip_smoke.PATH_KERNELS`` lists for it and no others,
 a match search its documented counts, and every kernel of the library is
@@ -77,10 +81,11 @@ from lzs_tpu_torch.ops import (_kernels, bitpar, decode, decode2, encode,
                                pcand, pexpand, pext, pgather, ppack, psync,
                                pwalk, sortmatch)
 
-from test_torch_cases import (FOLD_CAP, WALK_SKIPS, breaks_rows,
-                              cumsum_rows, expand_batch, fold_rows,
-                              hand_fill, heads_rows, minmax_rows, pack_units,
-                              raw_fuzz, sync_batch, sync_kwargs, walk_steps)
+from test_torch_cases import (FOLD_CAP, PROBE_NO_LANE, WALK_SKIPS,
+                              breaks_rows, cumsum_rows, expand_batch,
+                              fold_rows, hand_fill, heads_rows, minmax_rows,
+                              pack_units, probe_lanes, raw_fuzz, sync_batch,
+                              sync_kwargs, walk_steps)
 from test_torch_sessions import _batch, _plan, _text
 from test_torch_trace import _runs_data
 
@@ -568,6 +573,48 @@ def test_gather_kernel(cuda, b, w, q, shift):
     assert _kernels.GATHER_BIG.launches == before + 1
 
 
+@pytest.mark.parametrize("b,npos,p,cap", [
+    (8192, 1500, 1024, 12), (8192, 3547, 1024, 12), (1024, 32768, 1024, 12),
+    (1, 32768, 1024, 12), (1, 300, 300, 12), (37, 2100, 333, 16),
+    (13, 1500, 77, 2)])
+def test_probe_span_kernel(cuda, b, npos, p, cap):
+    """Tier 1 of the probe, one launch, bitwise its plain form on the
+    seeded wave lanes (``probe_lanes``: random, all-live and empty rows,
+    runs of 47 to 49 bytes, a run that reaches n inside the span, a
+    clamped at N - 1, offsets 2047, 2048, 4095 and 32767) at the cells'
+    wave shapes (IPComp's and the sessions' 8192 rows of 1500 and 3547,
+    the container's 1024 x 32768, 1024 lanes), at batch 1, and at lane
+    counts that no CTA divides."""
+    x, n, srt = (torch.from_numpy(a).to(cuda)
+                 for a in probe_lanes(npos + b, b, npos, p, cap))
+    before = _kernels.PROBE_SPAN.launches
+    got = sortmatch.probe_span(x, n, srt, cap)
+    assert _kernels.PROBE_SPAN.launches == before + 1
+    _equal(got, sortmatch.probe_span_plain(x, n, srt, cap))
+    assert (got[1] != sortmatch._BIG).any() or b == 1
+
+
+@pytest.mark.parametrize("b,npos,p", [(8192, 1500, 1024), (3, 32768, 1024),
+                                      (2, 5, 5)])
+def test_probe_span_kernel_all_empty_or_live(cuda, b, npos, p):
+    """Every lane empty (0 and _BIG, after one load each), then every lane
+    live at offsets 1 to 32767 over one repeated byte, where every run
+    fills the span or reaches n."""
+    rng = np.random.default_rng(b + npos)
+    x = torch.full((b, npos), 5, dtype=torch.int32, device=cuda)
+    n = torch.from_numpy(rng.integers(1, npos + 1, b).astype(np.int32)).to(
+        cuda)
+    x[torch.arange(npos, device=cuda) >= n[:, None]] = 0
+    empty = torch.full((b, p), PROBE_NO_LANE, dtype=torch.int32, device=cuda)
+    cln, dact = sortmatch.probe_span(x, n, empty, 12)
+    assert not cln.any() and (dact == sortmatch._BIG).all()
+    i = np.sort(np.argsort(rng.random((b, npos)), 1)[:, :p], 1)
+    d = rng.integers(1, 32768, (b, p))
+    srt = torch.from_numpy(((i << 15) | d).astype(np.int32)).to(cuda)
+    got = sortmatch.probe_span(x, n, srt, 12)
+    _equal(got, sortmatch.probe_span_plain(x, n, srt, 12))
+
+
 def _corpus_like(seed, nbytes):
     """Text-like bytes (a Zipf draw over a small vocabulary) around a
     stretch of noise."""
@@ -727,7 +774,8 @@ def test_probe_on_card_equals_cpu(cuda):
     counts = _kernels.launch_counts()
     assert torch.equal(got.cpu(), want)
     assert int(want.max()) > 4 * 12
-    assert counts["rank_mask"] == 4 and counts["gather_big"] > 4
+    assert counts["rank_mask"] == 4 and counts["probe_span"] == 4
+    assert counts["gather_big"] > 4
     assert counts["rowscan_rcummin"] > 0
 
 
@@ -1333,6 +1381,14 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         pext.rank_mask((v > 0)[:, ::2])
     with pytest.raises(TypeError):
+        sortmatch.probe_span(v, n, v.to(torch.int64), 12)
+    with pytest.raises(ValueError):
+        sortmatch.probe_span(v, n[:3].contiguous(), v, 12)
+    with pytest.raises(ValueError):
+        sortmatch.probe_span(v, n, v[:3].contiguous(), 12)
+    with pytest.raises(ValueError):
+        sortmatch.probe_span(v, n, v.cpu(), 12)
+    with pytest.raises(TypeError):
         pgather.gather_big(v, v.to(torch.int64))
     with pytest.raises(ValueError):
         pgather.gather_big(v, v[:, ::2])
@@ -1378,6 +1434,7 @@ _SEARCH_KERNELS = {
     "ext_breaks": (pext, "ext_breaks", pext.ext_breaks_plain),
     "ext_fold": (pext, "ext_fold", pext.ext_fold_plain),
     "rank_mask": (pext, "rank_mask", pext.rank_mask_plain),
+    "probe_span": (sortmatch, "probe_span", sortmatch.probe_span_plain),
     "gather_big": (pgather, "gather_big", pgather.gather_big_plain),
     "rcummin_rows": (pext, "rcummin_rows", pext.rcummin_rows_plain),
 }
